@@ -6,6 +6,7 @@ from repro_torch.api.admission import (  # noqa: F401
     TaskView,
     admit_one,
     admit_queue,
+    admit_queue_wavefront,
     committed_load,
     dominant,
     fits,

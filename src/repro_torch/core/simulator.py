@@ -1,7 +1,7 @@
 """Discrete-time cluster simulator (paper §5 evaluation substrate).
 
-Port of ``repro.core.simulator`` for the sequential admission path: a
-Python loop over 5-minute slots, each running
+Port of ``repro.core.simulator``: a Python loop over 5-minute slots, each
+running
 
   1. node aggregates of the active set (task finishes)
   2. each task's demand process, AR(1) around its mean, clipped at peak
@@ -9,17 +9,24 @@ Python loop over 5-minute slots, each running
   4. the penalty controller
   5. the estimator refresh; reservations cleared
   6. the policy's queue order (FIFO when absent), then retries and this
-     slot's arrivals admitted one decision at a time
+     slot's arrivals admitted in order: one decision at a time
+     (``admission_mode="sequential"``) or in wavefront rounds over the
+     batched kernels (``"wavefront"``)
 
 and the per-slot metrics.  Faults, migration, the guard, reclamation and
 retry backoff/jitter come with later slices (``NotImplementedError``).
 
 The queue of a slot is compacted to its ready entries before admission:
-the one host sync per slot.  It leaves every decision unchanged, because
-an invalid entry commits nothing.  Randomness comes from a noise source
-(:mod:`repro_torch.core.noise`); decisions equal the reference's under
-``ReplayNoise``.  Rounding follows the reference as XLA compiles it
-(:mod:`repro_torch.core.numerics`).
+the one host sync per slot of the sequential mode.  It leaves every
+decision unchanged, because an invalid entry commits nothing and is never
+pending in a wavefront.  It does change the wavefront's queue width Q,
+where the reference pads the queue, and with it whether the score-bucket
+dedup applies (``0 < dedup_buckets < Q``) and how many distinct rows it
+finds; those choose how a sweep is computed, not what it returns.
+
+Randomness comes from a noise source (:mod:`repro_torch.core.noise`);
+decisions equal the reference's under ``ReplayNoise``.  Rounding follows
+the reference as XLA compiles it (:mod:`repro_torch.core.numerics`).
 """
 from __future__ import annotations
 
@@ -91,15 +98,13 @@ def _check_supported(cfg: SimConfig) -> None:
          "estimators and reclamation"),
         (cfg.retry_backoff > 0, "SimConfig.retry_backoff", "faults"),
         (cfg.retry_jitter > 0, "SimConfig.retry_jitter", "faults"),
-        (cfg.admission_mode == "wavefront",
-         "SimConfig(admission_mode='wavefront')", "wavefront admission"),
     ]
     for on, what, slice_name in later:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet: it comes with the "
                 f"{slice_name} slice of the port")
-    if cfg.admission_mode != "sequential":
+    if cfg.admission_mode not in ("sequential", "wavefront"):
         raise ValueError(
             f"unknown SimConfig.admission_mode {cfg.admission_mode!r}; "
             f"expected 'sequential' or 'wavefront'")
@@ -202,7 +207,10 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
         node, placed_c = admission.admit_queue(
             policy, node, ts.request[ci], ts.src[ci], ts.priority[ci],
             torch.ones_like(ci, dtype=torch.bool), ctrl.penalty, params,
-            use_kernel=cfg.use_kernel)
+            use_kernel=cfg.use_kernel,
+            batch_mode=cfg.admission_mode == "wavefront",
+            topk=cfg.wavefront_topk, dedup_buckets=cfg.dedup_buckets,
+            tie_margin=cfg.wavefront_tie_margin)
         placed_idx = torch.full_like(queue_ids, -1).index_copy_(
             0, pos, placed_c)
 

@@ -127,10 +127,10 @@ class SimConfig(NamedTuple):
     """Static simulation configuration (§5.1).
 
     Field names and defaults are those of ``repro.core.types.SimConfig``.
-    This port runs the sequential admission path; the simulator raises
-    ``NotImplementedError`` for the features later slices bring (faults,
-    migration, guard, reclamation, retry backoff and jitter, wavefront
-    admission).  ``kernel_interpret`` has no counterpart: the port has no
+    This port runs the sequential and wavefront admission paths; the
+    simulator raises ``NotImplementedError`` for the features later slices
+    bring (faults, migration, guard, reclamation, retry backoff and
+    jitter).  ``kernel_interpret`` has no counterpart: the port has no
     kernel interpreter, and a run on CPU tensors takes each kernel's plain
     PyTorch version.
     """

@@ -141,17 +141,20 @@ def test_registry_and_capabilities():
     assert admission.DRAIN_LOAD == j_adm.DRAIN_LOAD
 
 
-def test_batch_mode_is_a_later_slice():
+def test_batch_mode_admits_in_wavefront_rounds():
     node = node_state_from_numpy(_node_arrays(8, 0), device="cpu")
     reqs, srcs, prios, valid = map(torch.from_numpy, _queue(4, 0))
     tp = FlexParams.default(device="cpu")
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        admission.admit_queue(get_policy("flex-f"), node, reqs, srcs, prios,
-                              valid, torch.tensor(1.0), tp, batch_mode=True)
-    _, pl = admission.admit_queue(get_policy("least-fit"), node, reqs, srcs,
-                                  prios, valid, torch.tensor(1.0), tp,
-                                  batch_mode=True)
-    assert pl.shape == (4,)
+    for name in ("flex-f", "least-fit"):
+        admission.reset_decisions()
+        _, seq = admission.admit_queue(get_policy(name), node, reqs, srcs,
+                                       prios, valid, torch.tensor(1.0), tp)
+        _, pl = admission.admit_queue(get_policy(name), node, reqs, srcs,
+                                      prios, valid, torch.tensor(1.0), tp,
+                                      batch_mode=True)
+        assert pl.shape == (4,) and torch.equal(pl, seq)
+        # the kernel-hooked policy sweeps; least-fit keeps the scan
+        assert (admission.SWEEPS > 0) == (name == "flex-f")
 
 
 def test_primitives_match():

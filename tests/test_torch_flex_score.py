@@ -145,14 +145,15 @@ def test_cpu_dispatch_takes_plain_version_without_launching():
 
 def test_build_names_the_hopper_target_and_no_contraction():
     from repro_torch.kernels import _build
-    assert set(_build.sources()) == {"flex_score"}
+    assert set(_build.sources()) == {"flex_score", "flex_score_batch"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
-    path = _build.library_path("flex_score")
-    assert path.parent == _build.BUILD_DIR
-    assert path.parent.parent.name == "build"
-    assert path == _build.library_path("flex_score")   # keyed, stable
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.parent.parent.name == "build"
+        assert path == _build.library_path(name)   # keyed, stable
 
 
 def test_jax_side_stays_on_cpu():

@@ -194,13 +194,21 @@ def test_experiment_seeds_and_sweep_axes(trace):
     ("reclamation", True, "reclamation"),
     ("retry_backoff", 2, "faults"),
     ("retry_jitter", 3, "faults"),
-    ("admission_mode", "wavefront", "wavefront"),
 ])
 def test_later_slices_raise(trace, field, value, slice_name):
     _, ts = trace
     cfg = SimConfig(**SMALL)._replace(**{field: value})
     with pytest.raises(NotImplementedError, match=slice_name):
         run(ts, cfg, "flex-f", device="cpu")
+
+
+def test_wavefront_mode_runs(trace):
+    _, ts = trace
+    seq = _port_run(ts, "flex-f", False)
+    wav = _port_run(ts, "flex-f", False, admission_mode="wavefront")
+    for name in ("placement", "admit_slot", "qos_ok_slots"):
+        assert torch.equal(getattr(wav, name), getattr(seq, name)), name
+    assert torch.equal(wav.metrics.n_rejected, seq.metrics.n_rejected)
 
 
 def test_unknown_admission_mode_raises(trace):
