@@ -31,9 +31,9 @@ after phase 3:
      random and tied tables with a fifth of the tasks fitting nowhere;
      times per sweep at N = 4000, Q = 4096 beside the bound.
   b. the wavefront study: phase 3's configuration with
-     ``admission_mode="wavefront"``; placements and admit slots must equal
-     phase 3's sequential kernel run, and the top-K kernel must launch
-     once per sweep.
+     ``admission_mode="wavefront"``, its first 12 slots; placements and
+     admit slots must equal those slots of phase 3's sequential kernel
+     run, and the top-K kernel must launch once per sweep.
   c. the ``wavefront_topk=0`` loop, 4 slots deep, against the first 4
      slots of phase 3's sequential run: the batched argmax kernel on a
      path.
@@ -42,13 +42,40 @@ after phase 3:
   e. the small replayed-noise wavefront run on the card against the CPU.
   f. profile: where one full-width wavefront queue's time goes.
 
+The serving path (launch/serve.py over ServeEngine) at stablelm-3b's full
+width, after phase a and after phase f:
+
+  g. the flash-attention kernel against its plain version, on the six
+     shapes of tests/test_kernels_flash.py and stablelm-3b's prefill
+     shapes (B = 1, H = KV = 32, hd = 80, causal, S up to 4096), and on
+     one full-width attention layer's (B, S, H, hd) projections through
+     ``chunked_attention`` as the serving path calls it, in f32 (max abs
+     error within 2e-5) and bf16 (2e-2, and each element within one bf16
+     rounding step of the plain value); times at S = 2048 and 4096 beside the bound, the plain
+     version and ``scaled_dot_product_attention`` (timed only, as a
+     yardstick).
+  h. the slice end to end: ``RealModelBackend`` with the full config in
+     bf16 (random weights), 2 replicas x 8 slots, flex in wavefront mode
+     and then reserve over 32 requests with 512-2048-token prompts and a
+     KV budget that binds; the flash kernel must launch 32 times per
+     prefill, flex must evict and admit at least as many requests as
+     reserve, and each run's decisions must equal the same engine's on
+     the CPU.
+  i. prefill against decode on the card (full width, bf16, a 512-token
+     prompt), and a small f32 smoke-config run against the CPU port.
+  j. profile: where one full-width prefill (2048 tokens) and one decode
+     step of a full replica spend their time.
+
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
 1 before doing anything.
 """
 from __future__ import annotations
 
+import gc
+import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -74,6 +101,10 @@ OFFERED_LOAD = 1.6
 # Depth of phase 3's plain-path run, cut to fit the time limit: it is
 # held against the kernel run's first PLAIN_SLOTS slots.
 PLAIN_SLOTS = 8
+# Depth of phase b's wavefront study, cut from 24 slots to 12 when the
+# serving phases joined the run, to keep it inside half its time limit: it
+# is held against the sequential run's first WAVE_SLOTS slots.
+WAVE_SLOTS = 12
 # Phase a's sizes, and the width of the synthetic queues of phases a, d, f
 # (the study's compacted queues hold about 4,100-5,100 tasks a slot).
 BATCH_NS = (4000, 4097, 100000)
@@ -541,7 +572,8 @@ def wavefront_study(dev, ts, res_seq) -> int:
     from repro_torch.core import SimConfig
     from repro_torch.traces import analysis
 
-    cfg = SimConfig(**FULL, admission_mode="wavefront")
+    cfg = SimConfig(**FULL, admission_mode="wavefront")._replace(
+        n_slots=WAVE_SLOTS)
     exp = Experiment(ts, cfg, "flex-f", device=dev)
     torch.cuda.reset_peak_memory_stats()
     res, wall, c = _timed_run(exp)
@@ -560,13 +592,13 @@ def wavefront_study(dev, ts, res_seq) -> int:
                              f"{c['sweeps']} sweeps")
     if c["pick"] or c["batch"]:
         raise AssertionError("the wavefront study launched another kernel")
-    _same_decisions("wavefront study", res, res_seq)
+    _same_decisions("wavefront study", res, res_seq, WAVE_SLOTS)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         summary = analysis.summarize(ts, res, 0.99)
     log("[wave] summary: " + json.dumps(summary, sort_keys=True))
-    log("[wave] placements and admit slots identical to the sequential "
-        "kernel run")
+    log(f"[wave] placements and admit slots identical to the sequential "
+        f"kernel run's first {WAVE_SLOTS} slots")
     return c["topk"]
 
 
@@ -759,6 +791,457 @@ def profile_decisions(dev, decisions: int = 256) -> None:
                 f"decision, {e.self_device_time_total / e.count:.2f} us each")
 
 
+# ---------------------------------------------------------------------------
+# phase g: the flash-attention kernel against plain
+# ---------------------------------------------------------------------------
+
+# The six shapes of tests/test_kernels_flash.py: (B, H, KV, S, hd, causal,
+# window).
+FLASH_TEST_CASES = ((1, 4, 4, 128, 64, True, 0), (2, 4, 2, 256, 64, True, 0),
+                    (1, 8, 1, 256, 128, True, 0), (2, 2, 2, 128, 32, False, 0),
+                    (1, 4, 2, 512, 64, True, 128), (1, 2, 2, 256, 80, True, 0))
+# stablelm-3b's single-request prefill: B = 1, H = KV = 32, hd = 80, causal.
+FLASH_PREFILL_S = (1, 37, 512, 1000, 2048, 4096)
+FLASH_TIMED_S = (2048, 4096)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# A bf16 case is also held, element by element, to one bf16 rounding step
+# of the plain value plus the float32 arithmetic's error before it: both
+# sides accumulate in float32 (the kernel carries P as two bf16 halves,
+# which leaves 2^-18 of it, times |v| <= 5) and round once to bf16, and
+# a rounding step is at most 2^-7 (1 + 2^-8) of the plain value.  Late in
+# a long row the outputs are near 0.05 and this bound near 5e-4, where
+# 2e-2 alone would pass a kernel that mishandled a late K/V tile.
+BF16_STEP = 2.0 ** -7 * (1 + 2.0 ** -8)
+BF16_F32_ERR = 1e-4
+BF16_FLOPS = 989e12
+
+
+def _flash_bound(b: int, h: int, kv: int, s: int, hd: int, elt: int):
+    """(bound ms, what bounds it) of one causal call: 4 hd flops for each
+    of the S (S + 1) / 2 unmasked (query, key) pairs per head over the bf16
+    tensor-core peak; q, k, v read and o written once over 3.35 TB/s."""
+    flops = 4 * hd * h * b * s * (s + 1) // 2
+    n_bytes = (2 * b * h * s * hd + 2 * b * kv * s * hd) * elt
+    by_ops = flops / BF16_FLOPS * 1e3
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def _flash_check(name: str, got, want, worst: dict) -> None:
+    """Hold one kernel result against the plain version's."""
+    diff = (got.float() - want.float()).abs()
+    err, tol = float(diff.max()), FLASH_TOL[got.dtype]
+    worst[got.dtype] = max(worst[got.dtype], err)
+    if not err <= tol:
+        raise AssertionError(f"flash {name}: max abs error {err} above "
+                             f"{tol}")
+    msg = f"max abs error {err:.3g} (tolerance {tol:.3g})"
+    if got.dtype == torch.bfloat16:
+        step = BF16_STEP * want.float().abs() + BF16_F32_ERR
+        used = float((diff / step).max())
+        if not used <= 1.0:
+            raise AssertionError(f"flash {name}: an element is off by "
+                                 f"{used:.3f} x (one bf16 rounding step "
+                                 f"+ {BF16_F32_ERR})")
+        msg += (f"; at most {used:.3f} of one bf16 rounding step + "
+                f"{BF16_F32_ERR} per element")
+    log(f"[flash] {name}: {msg}")
+
+
+def flash_vs_plain(dev) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bhsd)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[flash] torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = list(FLASH_TEST_CASES) + [(1, 32, 32, s, 80, True, 0)
+                                      for s in FLASH_PREFILL_S]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, h, kv, s, hd, causal, window in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev
+                                   ).to(dtype) for n in (h, kv, kv))
+            got = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
+            _flash_check(f"B={b} H={h} KV={kv} S={s} hd={hd} causal="
+                         f"{causal} window={window} {str(dtype)[6:]}",
+                         got, want, worst)
+    # As the serving path calls it: q, k, v from one full-width attention
+    # layer's projections and partial RoPE, (B, S, H, hd) tensors that
+    # chunked_attention hands on as transposed views, with a strided
+    # output.
+    cfg = _full_config()
+    attn = M._attn_init(cfg, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        p = {key: w.to(dtype) for key, w in attn.items()}
+        for s in FLASH_PREFILL_S:
+            x = torch.randn((1, s, cfg.d_model), generator=gen,
+                            device=dev).to(dtype)
+            q, k, v = M._qkv(cfg, p, x)
+            pos = torch.arange(s, device=dev)
+            q = L.rope(q, pos, cfg.rope_theta, cfg.rope_frac)
+            k = L.rope(k, pos, cfg.rope_theta, cfg.rope_frac)
+            got = L.chunked_attention(q, k, v, causal=True,
+                                      window=cfg.window)
+            want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 window=cfg.window).transpose(1, 2)
+            _flash_check(f"{cfg.name} layer, chunked_attention on (1, {s}, "
+                         f"{cfg.n_heads}, {cfg.head_dim_}) views "
+                         f"{str(dtype)[6:]}", got, want, worst)
+        del p
+    timed = {}
+    for s in FLASH_TIMED_S:
+        q, k, v = (torch.randn((1, 32, s, 80), generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+        ms = _event_ms(lambda: flash_attention_bhsd(q, k, v), reps=10)
+        plain_ms = _event_ms(lambda: attention_ref(q, k, v), reps=5)
+        lib_ms = _event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=10)
+        bound_ms, bound_by = _flash_bound(1, 32, 32, s, 80, 2)
+        timed[s] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
+        log(f"[flash] B=1 H=32 hd=80 S={s} causal bf16: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.4f} of it")
+    ms, plain_ms, lib_ms, bound_ms, bound_by = timed[FLASH_TIMED_S[0]]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:27",
+                launches=0, max_abs_err=max(worst.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
+# phases h and i: the serving slice at stablelm-3b's full width
+# ---------------------------------------------------------------------------
+
+ARCH = "stablelm-3b"
+# launch/serve.py's default shape (2 replicas x 8 slots) at full width; the
+# cache holds the longest prompt plus its longest declared generation.
+SERVE = dict(n_replicas=2, slots=8, max_seq=2560)
+SERVE_REQUESTS, SERVE_STEPS = 32, 200
+SERVE_PROMPT, SERVE_TRUE = (512, 2049), (16, 65)   # half-open ranges
+# Per-replica KV budget.  The workload's declared footprints (prompt +
+# max_tokens) average 1,433 tokens, so about 6 fit against 8 slots: the
+# budget, not the slots, holds requests back.  Prompts dominate the
+# footprints, so usage stays close to the declared size and flex has
+# little room to overcommit: replaying this engine on the CPU over budgets
+# from 3,000 to 9,000 tokens in steps of 50, flex evicted once at 5 of the
+# 121 budgets and never more.  This is the shortest of them (132 flex
+# steps, 138 reserve).
+SERVE_BUDGET = 8500
+# The step time the engine sees from each decode (the EMA's initial
+# value): both replicas decode the same (slots, max_seq) batch on one
+# card, so their wall times differ only by host jitter, and a constant
+# keeps straggler inflation off and the decisions replayable on the CPU.
+SERVE_STEP_TIME = 1.0
+PREFILL_DECODE_S = 512
+# bf16 keeps 8 significant bits: a logit of order 4 carries an ulp of 1/32,
+# and prefill and decode round at different places in each of 32 layers.
+PREFILL_DECODE_TOL = 0.25
+SMOKE_TOL = 1e-4
+
+
+def _full_config():
+    from repro_torch.configs import get_config
+    return get_config(ARCH)
+
+
+def _serve(policy: str, dev, decode, on_admit, on_evict) -> dict:
+    """Run the phase-h workload through a ServeEngine on ``dev``; returns
+    the engine and its decisions step by step.  ``decode(replica, reqs)``
+    runs the replica's decode; the engine sees SERVE_STEP_TIME."""
+    from repro_torch.launch.serve import make_workload
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    def decode_fn(replica, reqs):
+        decode(replica, reqs)
+        return SERVE_STEP_TIME
+
+    eng = ServeEngine(EngineConfig(
+        n_replicas=SERVE["n_replicas"], kv_budget_tokens=SERVE_BUDGET,
+        policy=policy, max_active_per_replica=SERVE["slots"]),
+        decode_fn=decode_fn, device=dev)
+    out = dict(eng=eng, placed=[], evicted=[], admitted=[], resident=[],
+               held_back=0)
+
+    def admit(req):
+        out["placed"].append((eng.stats.steps, req.rid, req.replica))
+        on_admit(req)
+
+    def evict(req):
+        out["evicted"].append((eng.stats.steps, req.rid))
+        on_evict(req)
+
+    eng.on_admit, eng.on_evict = admit, evict
+    admit_pending = eng.admit_pending
+
+    def admit_and_look():
+        n = admit_pending()
+        # the budget held a request back while a replica had a free slot
+        if eng.queue and min(map(len, eng.active.values())) < SERVE["slots"]:
+            out["held_back"] += 1
+        return n
+
+    eng.admit_pending = admit_and_look
+    for req in make_workload(SERVE_REQUESTS, prompt=SERVE_PROMPT,
+                             true=SERVE_TRUE):
+        eng.submit(req)
+    return out
+
+
+def _serve_steps(run: dict) -> None:
+    eng = run["eng"]
+    for _ in range(SERVE_STEPS):
+        eng.step()
+        run["admitted"].append(eng.stats.admitted)
+        run["resident"].append(sum(len(a) for a in eng.active.values()))
+        if eng.stats.finished == SERVE_REQUESTS:
+            break
+
+
+def serve_end_to_end(dev) -> int:
+    """Phase h; returns the flash kernel's launches in the flex run."""
+    from repro_torch.launch.serve import RealModelBackend
+
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    cfg = _full_config()
+    log(f"[serve] {cfg.name} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.dtype}; random weights "
+        f"(seed 0); {SERVE['n_replicas']} replicas x {SERVE['slots']} slots, "
+        f"max_seq {SERVE['max_seq']}, kv budget {SERVE_BUDGET} tokens per "
+        f"replica, step time seen by the engine {SERVE_STEP_TIME}")
+    runs = {}
+    for policy in ("flex", "reserve"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        backend = RealModelBackend(ARCH, SERVE["n_replicas"], SERVE["slots"],
+                                   SERVE["max_seq"], seed=0, cfg=cfg,
+                                   device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in backend.params.parameters())
+        setup = time.perf_counter() - t0
+        times = {"prefill": 0.0, "decode": 0.0}
+
+        def timed_hook(fn, name):
+            def hook(*args):
+                t = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                times[name] += time.perf_counter() - t
+            return hook
+
+        run = _serve(policy, dev, timed_hook(backend.decode_fn, "decode"),
+                     timed_hook(backend.on_admit, "prefill"),
+                     backend.on_evict)
+        _reset_counts()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        _serve_steps(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = _counts()
+        flash = fa.LAUNCHES
+        eng = run["eng"]
+        st = eng.stats
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[serve] {policy} ({eng.policy.name}, wavefront): "
+            f"{st.steps} steps in {wall:.2f} s; finished {st.finished}/"
+            f"{SERVE_REQUESTS}, admitted {st.admitted}, evictions "
+            f"{st.evicted_events} {run['evicted']} (step, rid); budget held "
+            f"a request back beside a free slot in {run['held_back']} "
+            f"steps; resident per step mean "
+            f"{statistics.fmean(run['resident']):.2f}, peak "
+            f"{max(run['resident'])}; mean util "
+            f"{statistics.fmean(st.util_series):.4f}, final QoS "
+            f"{st.qos_series[-1]:.4f}, final P {st.penalty_series[-1]:.4f}")
+        log(f"[serve] {policy}: {st.tokens_generated} tokens in "
+            f"{times['decode']:.3f} s of decode = "
+            f"{st.tokens_generated / times['decode']:.1f} decode tokens/s; "
+            f"{backend.prefills} prefills for {st.admitted} admissions of "
+            f"{SERVE_REQUESTS} requests in {times['prefill']:.3f} s = "
+            f"{backend.prefills / max(times['prefill'], 1e-9):.2f} "
+            f"prefills/s; set-up {setup:.2f} s ({n_params / 1e9:.3f} B "
+            f"parameters); peak memory {peak / 2**30:.2f} GiB")
+        log(f"[serve] {policy}: flash_attention launches {flash} "
+            f"(= {cfg.n_layers} x {backend.prefills} prefills), "
+            f"flex_score_batch_topk launches {c['topk']}, admission "
+            f"decisions {c['decisions']}, rounds {c['rounds']}, sweeps "
+            f"{c['sweeps']}")
+        if backend.prefills == 0 or flash != cfg.n_layers * backend.prefills:
+            raise AssertionError(f"{policy}: {flash} flash launches for "
+                                 f"{backend.prefills} prefills")
+        if c["pick"] or c["batch"]:
+            raise AssertionError(f"{policy}: the serving run launched a "
+                                 f"flex_score kernel outside its path")
+        if policy == "flex":
+            if c["topk"] == 0 or c["topk"] != c["sweeps"]:
+                raise AssertionError(f"flex: {c['topk']} top-K launches "
+                                     f"for {c['sweeps']} sweeps")
+            flex_launches = flash
+        for r in range(SERVE["n_replicas"]):
+            toks = backend.tokens[r]
+            if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                raise AssertionError(f"{policy}: replica {r} decoded a "
+                                     f"token outside the vocabulary")
+        if not all(math.isfinite(x) for x in st.penalty_series):
+            raise AssertionError(f"{policy}: non-finite penalty")
+        if run["held_back"] == 0:
+            raise AssertionError(f"{policy}: the KV budget never bound")
+        # The same engine on the CPU, with no model behind it: decisions
+        # do not depend on what the model computes.
+        cpu = _serve(policy, torch.device("cpu"), lambda *a: None,
+                     lambda req: None, lambda req: None)
+        _serve_steps(cpu)
+        for key in ("placed", "evicted", "admitted"):
+            if cpu[key] != run[key]:
+                raise AssertionError(f"{policy}: {key} on the card differ "
+                                     f"from the CPU engine's")
+        log(f"[serve] {policy}: placements, evictions and admissions equal "
+            f"the CPU engine's ({len(run['placed'])} placements)")
+        runs[policy] = dict(admitted=run["admitted"],
+                            evicted=st.evicted_events)
+        del backend, eng, run
+        gc.collect()   # the engine's wrapped hooks form reference cycles
+    k = min(len(runs["flex"]["admitted"]), len(runs["reserve"]["admitted"]))
+    flex, reserve = (runs[p]["admitted"][k - 1] for p in ("flex", "reserve"))
+    log(f"[serve] admitted after {k} steps: flex {flex}, reserve {reserve}")
+    if runs["flex"]["evicted"] == 0:
+        raise AssertionError("flex never evicted: the budget does not bind")
+    if flex < reserve:
+        raise AssertionError(f"flex admitted {flex} requests in {k} steps, "
+                             f"fewer than reserve's {reserve}")
+    return flex_launches
+
+
+def prefill_vs_decode(dev) -> None:
+    """Phase i: full width in bf16, then the smoke config in f32 against
+    the CPU port."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model, init_cache
+
+    cfg = _full_config()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_DECODE_S),
+                         generator=gen, device=dev)
+    t0 = time.perf_counter()
+    logits_p, _ = model.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache = init_cache(cfg, 1, PREFILL_DECODE_S, device=dev)
+    t0 = time.perf_counter()
+    for t in range(PREFILL_DECODE_S):
+        logits_d, cache = model.decode(params, cache, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    real = slice(0, cfg.vocab_size)
+    lp, ld = logits_p[:, real].float(), logits_d[:, real].float()
+    err = float((lp - ld).abs().max())
+    log(f"[pvd] {cfg.name} bf16, {PREFILL_DECODE_S}-token prompt: prefill "
+        f"{t_prefill * 1e3:.1f} ms, {PREFILL_DECODE_S} decode steps "
+        f"{t_decode:.2f} s; last logits max abs difference {err:.4f} "
+        f"(tolerance {PREFILL_DECODE_TOL}; max |logit| "
+        f"{float(lp.abs().max()):.3f}); argmax equal: "
+        f"{bool(lp.argmax() == ld.argmax())}")
+    if not (torch.isfinite(lp).all() and err <= PREFILL_DECODE_TOL):
+        raise AssertionError(f"prefill and decode disagree by {err}")
+    del params, cache
+
+    small = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    model = build_model(small)
+    params = model.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, small.vocab_size, (2, 45),
+                         generator=torch.Generator().manual_seed(3))
+    logits = []
+    for device in (dev, torch.device("cpu")):
+        p = params.to(device)
+        lp, _ = model.prefill(p, {"tokens": toks.to(device)})
+        cache = init_cache(small, 2, 48, device=device)
+        steps = [lp]
+        for t in range(6):
+            ld, cache = model.decode(p, cache, toks[:, t:t + 1].to(device))
+            steps.append(ld)
+        logits.append(torch.stack(steps).cpu())
+    err = float((logits[0] - logits[1]).abs().max())
+    log(f"[pvd] {small.name} f32 prefill (45 tokens) and 6 decode steps: "
+        f"card against the CPU port, max abs difference {err:.3g} "
+        f"(tolerance {SMOKE_TOL})")
+    if not err <= SMOKE_TOL:
+        raise AssertionError(f"smoke config: card and CPU differ by {err}")
+
+
+def profile_serving(dev) -> None:
+    """Phase j: where one full-width prefill of 2048 tokens and one decode
+    step of a full replica (8 slots, max_seq 2560) spend their time: the
+    host clock untraced, then the device's kernel time under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model, init_cache
+
+    cfg = _full_config()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    params = model.init(gen)
+    s = FLASH_TIMED_S[0]
+    prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device=dev)
+    cache = init_cache(cfg, SERVE["slots"], SERVE["max_seq"], filled=s - 1,
+                       device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE["slots"], 1),
+                           generator=gen, device=dev)
+    for name, fn in (
+            (f"prefill of {s} tokens",
+             lambda: model.prefill(params, {"tokens": prompt})),
+            (f"decode step of {SERVE['slots']} slots at position {s - 1}",
+             lambda: model.decode(params, cache, tokens))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy_ms == 0:
+            log(f"[sprofile] {name}: {wall_ms:.2f} ms untraced; device time "
+                f"not visible to the profiler")
+            continue
+        log(f"[sprofile] {cfg.name} {name}: {wall_ms:.2f} ms untraced; "
+            f"device busy {busy_ms:.2f} ms in "
+            f"{sum(e.count for e in kernels)} kernels, idle share "
+            f"{1 - busy_ms / wall_ms:.4f}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+            log(f"[sprofile]   {e.key[:60]}: {e.count} calls, "
+                f"{e.self_device_time_total / 1e3:.3f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -768,6 +1251,10 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
+    # Plain versions on the card in real float32 (PyTorch's default,
+    # pinned here): phases g and i hold kernels and runs against them.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; python "
         f"{sys.version.split()[0]}, torch {torch.__version__}, cuda "
@@ -789,7 +1276,8 @@ def main() -> int:
         return out
 
     kernels = [timed("2", kernel_vs_plain),
-               *timed("a", batch_kernels_vs_plain)]
+               *timed("a", batch_kernels_vs_plain),
+               timed("g", flash_vs_plain)]
     launches, ts, res_seq = timed("3", slice_end_to_end)
     launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
                                               res_seq)
@@ -800,6 +1288,9 @@ def main() -> int:
     timed("e", small_run_against_cpu, "wavefront")
     timed("5", profile_decisions)
     timed("f", profile_wavefront)
+    launches["flash_attention"] = timed("h", serve_end_to_end)
+    timed("i", prefill_vs_decode)
+    timed("j", profile_serving)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:

@@ -1,13 +1,14 @@
 """numpy arrays -> the port's types, with the reference's dtypes pinned.
 
-The JAX package hands its state over as ``np.asarray`` of each leaf; these
-functions cast every float to float32 and every integer to int32 (a
-float64 array never becomes a float64 tensor) and place the result on
-``device``.
+The JAX package hands its state over as ``np.asarray`` of each leaf.  The
+simulator's state casts every float to float32 and every integer to int32
+(a float64 array never becomes a float64 tensor); model parameters keep
+their dtype (float32, or bfloat16 through float32, which is exact).  Each
+result lands on ``device``.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -56,3 +57,31 @@ def noise_table_from_numpy(table: np.ndarray, *,
                            device="cuda") -> ReplayNoise:
     """(S, T) demand-noise table -> a :class:`ReplayNoise` source."""
     return ReplayNoise(_tensor("noise", table, device))
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes.bfloat16
+        t = torch.from_numpy(a.astype(np.float32))
+        return t.to(device=device, dtype=torch.bfloat16)
+    if a.dtype != np.float32:
+        raise TypeError(f"model parameter of dtype {a.dtype}: expected "
+                        f"float32 or bfloat16")
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def model_params_from_numpy(cfg, tree: Mapping[str, Any], *,
+                            device="cuda"):
+    """The reference's ``model.init`` tree (numpy leaves, ``layers``
+    stacked on a leading L axis) -> the port's :class:`DenseLM`."""
+    from repro_torch.models.model import DenseLM, _require_dense
+
+    _require_dense(cfg)
+    layers = [{group: {name: _leaf(leaf[i], device)
+                       for name, leaf in leaves.items()}
+               for group, leaves in tree["layers"].items()}
+              for i in range(cfg.n_layers)]
+    lm_head = tree.get("lm_head")
+    return DenseLM(_leaf(tree["tok_emb"], device), layers,
+                   {k: _leaf(v, device) for k, v in tree["ln_f"].items()},
+                   None if lm_head is None else _leaf(lm_head, device))

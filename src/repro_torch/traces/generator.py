@@ -136,3 +136,46 @@ def generate_calibrated(seed: int, n_nodes: int, n_slots: int,
         (a["request"].mean(axis=1) * eff_dur).sum()) / (n_nodes * n_slots)
     n1 = max(1, int(round(n0 * offered_load / max(realized, 1e-6))))
     return generate_taskset(seed, n1, n_slots, params, device=device)
+
+
+ARRIVAL_PATTERNS = ("poisson", "diurnal", "burst")
+
+
+def arrival_counts(seed: int, n_slots: int, mean_rate: float,
+                   pattern: str = "poisson", *,
+                   diurnal_amp: float = 0.5,
+                   diurnal_period: int | None = None,
+                   burst_prob: float = 0.05,
+                   burst_mult: float = 10.0) -> np.ndarray:
+    """Per-slot arrival counts for open-loop (production-rate) driving.
+
+    Three processes, all with mean ``mean_rate`` arrivals per slot:
+
+      * ``poisson``: homogeneous Poisson;
+      * ``diurnal``: Poisson with rate ``mean_rate * (1 + diurnal_amp *
+        sin(2 pi t / period))``, ``diurnal_period`` defaulting to the
+        horizon;
+      * ``burst``: each slot is a burst with probability ``burst_prob``,
+        multiplying a renormalized base rate by ``burst_mult``
+        (overdispersed, mean preserved).
+
+    numpy draws in the reference's order: equal seeds give equal counts.
+    Returns an (n_slots,) int64 array.
+    """
+    rng = np.random.default_rng(seed)
+    if pattern == "poisson":
+        rate = np.full(n_slots, mean_rate)
+    elif pattern == "diurnal":
+        period = diurnal_period or n_slots
+        t = np.arange(n_slots)
+        rate = mean_rate * (1.0 + diurnal_amp
+                            * np.sin(2 * np.pi * t / max(period, 1)))
+    elif pattern == "burst":
+        is_burst = rng.random(n_slots) < burst_prob
+        mult = np.where(is_burst, burst_mult, 1.0)
+        base = mean_rate / (1.0 + burst_prob * (burst_mult - 1.0))
+        rate = base * mult
+    else:
+        raise ValueError(
+            f"unknown arrival pattern {pattern!r}; one of {ARRIVAL_PATTERNS}")
+    return rng.poisson(np.maximum(rate, 0.0))

@@ -1,0 +1,132 @@
+"""The flash-attention kernel's plain version against the JAX reference.
+
+The same numpy inputs go to the port's ``flash_attention`` adapter (a CPU
+tensor takes the plain version), the JAX oracle ``attention_ref`` and the
+JAX Pallas kernel run in interpret mode, on the six shapes of
+``tests/test_kernels_flash.py`` and on ragged lengths.  Tolerances are
+those of that file: 2e-5 in float32 (sum order), 2e-2 in bfloat16 (one
+bf16 rounding of outputs of order 1).  The CUDA kernel itself runs only on
+the card, where ``chip_smoke.py`` holds it against the same plain version.
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import (
+    flash_attention_bhsd as j_flash_bhsd)
+from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS, flash_attention_bhsd)
+
+# The package exports the adapter function under the module's own name.
+fa_mod = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
+
+CASES = [
+    # B, H, KV, S, hd, causal, window
+    (1, 4, 4, 128, 64, True, 0),
+    (2, 4, 2, 256, 64, True, 0),      # GQA
+    (1, 8, 1, 256, 128, True, 0),     # MQA
+    (2, 2, 2, 128, 32, False, 0),     # bidirectional (encoder)
+    (1, 4, 2, 512, 64, True, 128),    # sliding window
+    (1, 2, 2, 256, 80, True, 0),      # stablelm head_dim
+]
+RAGGED = [
+    (1, 4, 2, 37, 80, True, 0),
+    (2, 2, 1, 1, 64, True, 0),
+    (1, 2, 2, 100, 64, True, 24),
+    (1, 2, 2, 71, 32, False, 0),
+]
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _inputs(b, h, kv, s, hd, seed):
+    """(B, H, S, hd) q and (B, KV, S, hd) k, v as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, n, s, hd)).astype(np.float32)
+            for n in (h, kv, kv)]
+
+
+def _port(qkv, causal, window, tdt):
+    """The model-layout adapter on CPU tensors, in (B, H, S, hd) layout."""
+    q, k, v = (torch.from_numpy(x).to(tdt).transpose(1, 2) for x in qkv)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    return out.transpose(1, 2).float().numpy()
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                                - np.asarray(b, np.float32))))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", CASES)
+def test_plain_matches_reference_and_interpret_kernel(B, H, KV, S, hd,
+                                                      causal, window, dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    qkv = _inputs(B, H, KV, S, hd, seed=S + hd)
+    got = _port(qkv, causal, window, tdt)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in qkv)
+    want = j_ref(jq, jk, jv, causal=causal, window=window)
+    kern = j_flash_bhsd(jq, jk, jv, causal=causal, window=window,
+                        block_q=64, block_k=64, interpret=True)
+    assert _err(got, want) < tol
+    assert _err(got, kern) < tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", RAGGED)
+def test_plain_matches_reference_ragged(B, H, KV, S, hd, causal, window,
+                                        dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    qkv = _inputs(B, H, KV, S, hd, seed=S)
+    got = _port(qkv, causal, window, tdt)
+    want = j_ref(*(jnp.asarray(x, jdt) for x in qkv), causal=causal,
+                 window=window)
+    assert _err(got, want) < tol
+
+
+def test_ref_keeps_dtype_and_layout():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(1, 4, 2, 9, 32, seed=0))
+    out = attention_ref(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 9, 32)
+    # row 0 attends to key 0 alone under the causal mask
+    assert torch.equal(out[0, :2, 0], v[0, 0, 0].expand(2, 32))
+
+
+def test_launcher_takes_only_cuda_tensors():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 2, 8, 64, seed=1))
+    fa_mod.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bhsd(q, k, v)
+    assert fa_mod.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("shape_kv,match", [
+    ((1, 3, 8, 64), "group"),          # 4 heads onto 3 kv heads
+    ((1, 2, 8, 48), "k and v"),        # head dims differ
+])
+def test_launcher_rejects_bad_shapes(shape_kv, match):
+    q = torch.zeros((1, 4, 8, 64))
+    k = v = torch.zeros(shape_kv)
+    with pytest.raises(ValueError, match=match):
+        flash_attention_bhsd(q, k, v)
+
+
+def test_launcher_rejects_unsupported_head_dim():
+    assert 48 not in HEAD_DIMS and 80 in HEAD_DIMS
+    x = torch.zeros((1, 2, 8, 48))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bhsd(x, x, x)
+
+
+def test_adapter_refuses_other_devices():
+    x = torch.zeros((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(x, x, x)

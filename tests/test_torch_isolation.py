@@ -17,7 +17,9 @@ PKG = SRC / "repro_torch"
 # ImportError on one of these orders.
 FIRST = ["repro_torch", "repro_torch.core", "repro_torch.api",
          "repro_torch.estimators", "repro_torch.traces",
-         "repro_torch.kernels.flex_score", "repro_torch.convert"]
+         "repro_torch.kernels.flex_score", "repro_torch.convert",
+         "repro_torch.configs", "repro_torch.models", "repro_torch.serving",
+         "repro_torch.launch", "repro_torch.kernels.flash_attention"]
 
 _CHECK = r"""
 import importlib, pkgutil, sys

@@ -1,0 +1,114 @@
+"""The port's real-model serving driver against the JAX reference.
+
+Both backends serve the smoke stablelm-3b in float32 with the same
+weights (the reference's ``model.init``, carried across), behind engines
+whose ``decode_fn`` runs the backend's decode and reports a constant step
+time (real wall times would feed the straggler inflation and make the
+runs diverge).  The greedy tokens must be equal at every step, and the
+KV caches equal within 1e-4 (float32 sum order), over a run long enough
+for the replica's shared ``len`` to pass ``max_seq``: the backend writes
+every slot's new K/V at that shared position, clamped to ``max_seq - 1``.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.launch.serve as j_serve
+from repro.serving.engine import EngineConfig as JEngineConfig
+from repro.serving.engine import ServeEngine as JServeEngine
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import model_params_from_numpy
+from repro_torch.launch import serve
+from repro_torch.serving import EngineConfig, ServeEngine
+
+torch.set_num_threads(1)
+
+ARCH = "stablelm-3b"
+
+
+def _engines(monkeypatch, max_seq):
+    j_cfg = dataclasses.replace(j_serve.get_smoke_config(ARCH),
+                                dtype="float32")
+    monkeypatch.setattr(j_serve, "get_smoke_config", lambda arch: j_cfg)
+    jb = j_serve.RealModelBackend(ARCH, 2, 4, max_seq=max_seq)
+    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    tb = serve.RealModelBackend(ARCH, 2, 4, max_seq=max_seq, cfg=cfg,
+                                device="cpu")
+    tb.params = model_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jb.params), device="cpu")
+    kw = dict(n_replicas=2, kv_budget_tokens=200, max_active_per_replica=4)
+    engines = []
+    for backend, eng, workload in (
+            (jb, JServeEngine(JEngineConfig(**kw)), j_serve.make_workload),
+            (tb, ServeEngine(EngineConfig(**kw), device="cpu"),
+             serve.make_workload)):
+        eng.decode_fn = (lambda b: lambda i, reqs: (b.decode_fn(i, reqs),
+                                                    1.0)[1])(backend)
+        eng.on_admit = backend.on_admit
+        eng.on_evict = backend.on_evict
+        for req in workload(10):
+            eng.submit(req)
+        engines.append((backend, eng))
+    return engines
+
+
+def test_backend_matches_reference(monkeypatch):
+    (jb, je), (tb, te) = _engines(monkeypatch, max_seq=32)
+    for step in range(40):
+        je.step()
+        te.step()
+        for r in range(2):
+            assert np.array_equal(np.asarray(jb.tokens[r]),
+                                  tb.tokens[r].numpy()), (step, r)
+            assert int(tb.caches[r]["len"]) == int(jb.caches[r]["len"])
+            for key in ("k", "v"):
+                err = np.abs(np.asarray(jb.caches[r][key])
+                             - tb.caches[r][key].numpy()).max()
+                assert err < 1e-4, (step, r, key, err)
+    assert jb.slot_of == tb.slot_of and jb.free == tb.free
+    # the shared len ran past max_seq on a replica that decoded every step
+    assert max(int(c["len"]) for c in tb.caches) > 32
+    assert (te.stats.admitted, te.stats.finished) == (je.stats.admitted,
+                                                      je.stats.finished)
+
+
+def test_slots_free_only_on_eviction():
+    """Finished requests keep their slot (the reference's bookkeeping):
+    once a replica's slots are used, admissions run no prefill."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    b = serve.RealModelBackend(ARCH, 1, 2, max_seq=64, cfg=cfg, device="cpu")
+    eng = ServeEngine(EngineConfig(n_replicas=1, kv_budget_tokens=400,
+                                   max_active_per_replica=2),
+                      decode_fn=b.decode_fn, device="cpu")
+    eng.on_admit, eng.on_evict = b.on_admit, b.on_evict
+    for req in serve.make_workload(6):
+        eng.submit(req)
+    stats = eng.run(80)
+    assert stats.finished > 2 and stats.evicted_events == 0
+    assert b.prefills == 2 and b.free == [[]]
+
+
+def test_make_workload_matches_reference():
+    fields = ("rid", "prompt_len", "max_tokens", "true_tokens")
+    got = [tuple(getattr(r, f) for f in fields)
+           for r in serve.make_workload(50, seed=3)]
+    want = [tuple(getattr(r, f) for f in fields)
+            for r in j_serve.make_workload(50, seed=3)]
+    assert got == want
+    long = serve.make_workload(32, prompt=(512, 2049), true=(16, 65))
+    assert all(512 <= r.prompt_len <= 2048 and 16 <= r.true_tokens <= 64
+               and 1.5 * r.true_tokens - 1 <= r.max_tokens
+               <= 4 * r.true_tokens for r in long)
+
+
+@pytest.mark.parametrize("extra", [[], ["--stream", "burst", "--rate", "1"]])
+def test_main_runs_on_cpu(extra, capsys):
+    stats = serve.main(["--device", "cpu", "--requests", "6", "--steps",
+                        "12", "--replicas", "1", "--slots", "4", "--budget",
+                        "256", *extra])
+    out = capsys.readouterr().out
+    assert "policy=flex replicas=1 budget=256tok" in out
+    assert "tokens/s" in out and stats.steps == 12
