@@ -66,6 +66,28 @@ width, after phase a and after phase f:
   j. profile: where one full-width prefill (2048 tokens) and one decode
      step of a full replica spend their time.
 
+The Mamba2 serving path (the ssm and hybrid families), after phase g and
+after phase j:
+
+  k. the SSD scan kernel against its plain versions (``ssd_ref`` and
+     ``ssd_chunked``) on the same CUDA tensors, y and final state: the
+     cases of tests/test_kernels_ssd.py, ragged S in {1, 37, 255, 257,
+     1000} and both full configs' prefill shapes (B = 1, S up to 4096,
+     Q = 256), in f32 (within 5e-4 max(1, Q / 64) of the largest plain
+     value) and bf16 (each y element within one bf16 rounding step of the
+     plain value plus that), and through ``ssm_apply`` on one full-width
+     layer's projections; times at S = 2048 and 4096 beside the bound and
+     the plain version (no library call computes the scan).
+  l. mamba2-370m at full width in bf16 behind ``RealModelBackend``, flex
+     then reserve over phase h's workload and budget: 48 SSD launches per
+     prefill, decisions equal to the CPU replay's and to phase h's.
+  m. zamba2-7b at full width in bf16 under flex (81 SSD and 9 flash
+     launches per prefill, phase h's decisions); prefill(S) + decode
+     against prefill(S + 1) for both full configs (the kernel's final
+     state and the conv tail); both smoke configs in f32 on the card
+     against the CPU port; a profile of a 2048-token mamba2-370m prefill
+     and a full decode step.
+
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
 1 before doing anything.
@@ -98,9 +120,10 @@ FULL = dict(n_nodes=4000, n_slots=24, arrivals_per_slot=4096,
             retry_capacity=1024)
 PAPER_SLOTS = 288
 OFFERED_LOAD = 1.6
-# Depth of phase 3's plain-path run, cut to fit the time limit: it is
-# held against the kernel run's first PLAIN_SLOTS slots.
-PLAIN_SLOTS = 8
+# Depth of phase 3's plain-path run, cut to fit the time limit (from 8
+# slots to 4 when the Mamba2 phases came): it is held against the kernel
+# run's first PLAIN_SLOTS slots.
+PLAIN_SLOTS = 4
 # Depth of phase b's wavefront study, cut from 24 slots to 12 when the
 # serving phases joined the run, to keep it inside half its time limit: it
 # is held against the sequential run's first WAVE_SLOTS slots.
@@ -925,6 +948,173 @@ def flash_vs_plain(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase k: the SSD scan kernel against plain
+# ---------------------------------------------------------------------------
+
+# The four cases of tests/test_kernels_ssd.py: (Bt, S, H, P, N, chunk).
+SSD_TEST_CASES = ((2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64),
+                  (2, 64, 8, 16, 8, 16), (1, 128, 1, 128, 64, 128))
+# The full configs' single-request prefill shapes: (name, H, P, N), Q = 256.
+SSD_FULL = (("mamba2-370m", 32, 64, 128), ("zamba2-7b", 112, 64, 64))
+SSD_RAGGED_S = (1, 37, 255, 257, 1000)     # at mamba2-370m's shape
+SSD_PREFILL_S = (512, 1337, 2048, 4096)
+SSD_TIMED_S = (2048, 4096)
+SSD_LAYER_S = (37, 2048)
+SSD_CHUNK = 256
+# float32: the kernel sums the chunk's dual form in another order than the
+# sequential recurrence (ssd_ref) and than ssd_chunked's einsums; the JAX
+# test's bound, 5e-4 * max(1, Q / 64), taken relative to the largest plain
+# output (max |y| is 10-60 here).
+SSD_F32_REL = 5e-4
+# bfloat16: y is rounded once from float32 sums, so each element is held to
+# one bf16 rounding step of the plain float32 value plus the float32 sums'
+# own error (SSD_F32_REL of the largest output); the state stays float32.
+TF32_FLOPS = 494.7e12
+
+
+def _ssd_inputs(b, s, h, p, n, gen, dev, dtype=torch.float32):
+    """The JAX test's distributions: x, B, C normal; dt = softplus(normal);
+    A = U[1, 8]."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x, B, C = r(b, s, h, p).to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(
+        dtype)
+    dt = torch.nn.functional.softplus(r(b, s, h))
+    A_log = torch.log(1 + 7 * torch.rand((h,), generator=gen, device=dev))
+    return x, B, C, dt, A_log
+
+
+def _ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int, elt: int):
+    """(bound ms, what bounds it) of one call.  Operations, at the TF32
+    tensor-core peak: per chunk of r rows the causal half of C B^T, r (r +
+    1) N, once for all heads (they share one (B, C) group), and per head
+    the causal half of the scores times x, r (r + 1) P, and the two state
+    products, 4 r N P.  Bytes, at 3.35 TB/s: x, B, C, a, dt read and y,
+    the state written once."""
+    shared = per_head = 0
+    for c0 in range(0, s, q):
+        r = min(q, s - c0)
+        shared += r * (r + 1) * n
+        per_head += r * (r + 1) * p + 4 * r * n * p
+    flops = b * shared + b * h * per_head
+    n_bytes = (2 * b * s * h * p + 2 * b * s * n) * elt + 2 * b * s * h * 4 \
+        + b * h * p * n * 4
+    by_ops = flops / TF32_FLOPS * 1e3
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def _ssd_check(name: str, got, want, q: int, worst: dict) -> None:
+    """Hold the kernel's (y, state) against a plain version's: float32
+    values within SSD_F32_REL * max(1, Q / 64) of the largest plain value,
+    bf16 elements each within one rounding step of their plain value plus
+    that bound."""
+    tol = SSD_F32_REL * max(1.0, q / 64)
+    msgs = []
+    for what, g, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        w = w.float()
+        scale = max(1.0, float(w.abs().max()))
+        diff = (g.float() - w).abs()
+        worst[g.dtype] = max(worst[g.dtype], float(diff.max()))
+        if g.dtype == torch.bfloat16:
+            used = float((diff / (BF16_STEP * w.abs() + tol * scale)).max())
+            if not used <= 1.0:
+                raise AssertionError(
+                    f"ssd {name}: a {what} element is off by {used:.3f} x "
+                    f"(one bf16 rounding step + {tol:.3g} x {scale:.3g})")
+            msgs.append(f"{what} max abs error {float(diff.max()):.3g}, at "
+                        f"most {used:.3f} of one bf16 step + {tol:.3g} of "
+                        f"max |plain| {scale:.3g}")
+            continue
+        rel = float(diff.max()) / scale
+        if not rel <= tol:
+            raise AssertionError(f"ssd {name}: {what} max abs error "
+                                 f"{float(diff.max())} is {rel:.3g} of the "
+                                 f"largest plain value {scale:.3g}, above "
+                                 f"{tol:.3g}")
+        msgs.append(f"{what} {rel:.3g} of max |plain| {scale:.3g}")
+    log(f"[ssd] {name}: " + "; ".join(msgs) + f" (tolerance {tol:.3g})")
+
+
+def ssd_vs_plain(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models import ssm as SSM
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    h0, p0, n0 = SSD_FULL[0][1:]
+    cases = ([(f"test case {c}", *c) for c in SSD_TEST_CASES]
+             + [(f"mamba2-370m shape, ragged S={s}", 1, s, h0, p0, n0,
+                 SSD_CHUNK) for s in SSD_RAGGED_S]
+             + [(f"{name} prefill S={s}", 1, s, h, p, n, SSD_CHUNK)
+                for name, h, p, n in SSD_FULL for s in SSD_PREFILL_S])
+    for label, b, s, h, p, n, q in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(b, s, h, p, n, gen, dev, dtype)
+            got = ssd_scan(*args, q, return_state=True)
+            tag = f"{label} {str(dtype)[6:]}"
+            _ssd_check(f"{tag} vs ssd_ref", got, ssd_ref(*args), q, worst)
+            _ssd_check(f"{tag} vs ssd_chunked", got,
+                       SSM.ssd_chunked(*args, q), q, worst)
+    # As the serving path calls it: one full-width layer's projections,
+    # x, B and C as strided views of its xBC, through ssm_apply.
+    for name, *_ in SSD_FULL:
+        cfg = get_config(name)
+        p = SSM.ssm_init(cfg, gen)
+        seen = []
+
+        def recording(*args, **kw):
+            out = ssd_scan(*args, **kw)
+            seen.append((args, out))
+            return out
+
+        SSM.ssd_scan = recording
+        try:
+            for s in SSD_LAYER_S:
+                x = torch.randn((1, s, cfg.d_model), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                SSM.ssm_apply(cfg, p, x, with_cache=True)
+        finally:
+            SSM.ssd_scan = ssd_scan
+        for args, got in seen:
+            xh, Bm = args[0], args[1]
+            if xh.is_contiguous() or Bm.is_contiguous():
+                raise AssertionError("ssm_apply passed copies, not views "
+                                     "of xBC")
+            _ssd_check(f"{name} layer through ssm_apply, x {tuple(xh.shape)}"
+                       f" bf16 views", got, ssd_ref(*args[:5]), args[5],
+                       worst)
+        del p
+    timed = {}
+    for name, h, p, n in SSD_FULL:
+        for s in SSD_TIMED_S:
+            args = _ssd_inputs(1, s, h, p, n, gen, dev, torch.bfloat16)
+            ms = _event_ms(lambda: ssd_scan(*args, SSD_CHUNK,
+                                            return_state=True), reps=10)
+            plain_ms = _event_ms(lambda: ssd_ref(*args), reps=3)
+            chunked_ms = _event_ms(lambda: SSM.ssd_chunked(*args, SSD_CHUNK),
+                                   reps=10)
+            bound_ms, bound_by = _ssd_bound(1, s, h, p, n, SSD_CHUNK, 2)
+            timed[(name, s)] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"[ssd] {name} B=1 H={h} P={p} N={n} S={s} Q={SSD_CHUNK} "
+                f"bf16: kernel {ms:.4f} ms, plain (ssd_ref) {plain_ms:.4f} "
+                f"ms, ssd_chunked {chunked_ms:.4f} ms (kernel / ssd_chunked "
+                f"{ms / chunked_ms:.4f}), library: none; bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
+    ms, plain_ms, bound_ms, bound_by = timed[(SSD_FULL[0][0],
+                                              SSD_TIMED_S[0])]
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
+                launches=0, max_abs_err=max(worst.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+# ---------------------------------------------------------------------------
 # phases h and i: the serving slice at stablelm-3b's full width
 # ---------------------------------------------------------------------------
 
@@ -1013,27 +1203,51 @@ def _serve_steps(run: dict) -> None:
             break
 
 
-def serve_end_to_end(dev) -> int:
-    """Phase h; returns the flash kernel's launches in the flex run."""
-    from repro_torch.launch.serve import RealModelBackend
-
+def _kernel_launches() -> dict:
     fa = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
-    cfg = _full_config()
-    log(f"[serve] {cfg.name} full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.dtype}; random weights "
-        f"(seed 0); {SERVE['n_replicas']} replicas x {SERVE['slots']} slots, "
-        f"max_seq {SERVE['max_seq']}, kv budget {SERVE_BUDGET} tokens per "
-        f"replica, step time seen by the engine {SERVE_STEP_TIME}")
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    return {"flash_attention": fa.LAUNCHES, "ssd_scan": ss.LAUNCHES}
+
+
+def _reset_kernel_launches() -> None:
+    _reset_counts()
+    for name in ("flash_attention.flash_attention", "ssd_scan.ssd_scan"):
+        importlib.import_module(f"repro_torch.kernels.{name}"
+                                ).reset_launches()
+
+
+def _per_prefill(cfg) -> dict:
+    """The model kernels' launches in one prefill of ``cfg``."""
+    from repro_torch.models.model import n_shared_invocations
+    if cfg.family == "dense":
+        return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    return {"flash_attention": n_shared_invocations(cfg),
+            "ssd_scan": cfg.n_layers}
+
+
+def _serve_model(dev, cfg, policies) -> dict:
+    """``RealModelBackend`` with ``cfg`` (random weights, seed 0) behind the
+    engine, over the phase-h workload, once per policy.  Checks each run
+    and returns policy -> its decisions and kernel launches."""
+    from repro_torch.launch.serve import RealModelBackend
+
+    tag = f"[serve {cfg.name}]"
+    log(f"{tag} full width: {cfg.n_layers} layers ({cfg.family}), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_padded}, {cfg.dtype}; random "
+        f"weights (seed 0); {SERVE['n_replicas']} replicas x "
+        f"{SERVE['slots']} slots, max_seq {SERVE['max_seq']}, kv budget "
+        f"{SERVE_BUDGET} tokens per replica, step time seen by the engine "
+        f"{SERVE_STEP_TIME}")
+    per_prefill = _per_prefill(cfg)
     runs = {}
-    for policy in ("flex", "reserve"):
+    for policy in policies:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        backend = RealModelBackend(ARCH, SERVE["n_replicas"], SERVE["slots"],
-                                   SERVE["max_seq"], seed=0, cfg=cfg,
-                                   device=dev)
+        backend = RealModelBackend(cfg.name, SERVE["n_replicas"],
+                                   SERVE["slots"], SERVE["max_seq"], seed=0,
+                                   cfg=cfg, device=dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in backend.params.parameters())
         setup = time.perf_counter() - t0
@@ -1050,18 +1264,16 @@ def serve_end_to_end(dev) -> int:
         run = _serve(policy, dev, timed_hook(backend.decode_fn, "decode"),
                      timed_hook(backend.on_admit, "prefill"),
                      backend.on_evict)
-        _reset_counts()
-        fa.reset_launches()
+        _reset_kernel_launches()
         t0 = time.perf_counter()
         _serve_steps(run)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        c = _counts()
-        flash = fa.LAUNCHES
+        c, launches = _counts(), _kernel_launches()
         eng = run["eng"]
         st = eng.stats
         peak = torch.cuda.max_memory_allocated()
-        log(f"[serve] {policy} ({eng.policy.name}, wavefront): "
+        log(f"{tag} {policy} ({eng.policy.name}, wavefront): "
             f"{st.steps} steps in {wall:.2f} s; finished {st.finished}/"
             f"{SERVE_REQUESTS}, admitted {st.admitted}, evictions "
             f"{st.evicted_events} {run['evicted']} (step, rid); budget held "
@@ -1071,7 +1283,7 @@ def serve_end_to_end(dev) -> int:
             f"{max(run['resident'])}; mean util "
             f"{statistics.fmean(st.util_series):.4f}, final QoS "
             f"{st.qos_series[-1]:.4f}, final P {st.penalty_series[-1]:.4f}")
-        log(f"[serve] {policy}: {st.tokens_generated} tokens in "
+        log(f"{tag} {policy}: {st.tokens_generated} tokens in "
             f"{times['decode']:.3f} s of decode = "
             f"{st.tokens_generated / times['decode']:.1f} decode tokens/s; "
             f"{backend.prefills} prefills for {st.admitted} admissions of "
@@ -1079,22 +1291,23 @@ def serve_end_to_end(dev) -> int:
             f"{backend.prefills / max(times['prefill'], 1e-9):.2f} "
             f"prefills/s; set-up {setup:.2f} s ({n_params / 1e9:.3f} B "
             f"parameters); peak memory {peak / 2**30:.2f} GiB")
-        log(f"[serve] {policy}: flash_attention launches {flash} "
-            f"(= {cfg.n_layers} x {backend.prefills} prefills), "
-            f"flex_score_batch_topk launches {c['topk']}, admission "
-            f"decisions {c['decisions']}, rounds {c['rounds']}, sweeps "
-            f"{c['sweeps']}")
-        if backend.prefills == 0 or flash != cfg.n_layers * backend.prefills:
-            raise AssertionError(f"{policy}: {flash} flash launches for "
-                                 f"{backend.prefills} prefills")
+        log(f"{tag} {policy}: launches " + ", ".join(
+            f"{k} {v} (= {per_prefill[k]} x {backend.prefills} prefills)"
+            for k, v in launches.items())
+            + f", flex_score_batch_topk {c['topk']}; admission decisions "
+            f"{c['decisions']}, rounds {c['rounds']}, sweeps {c['sweeps']}")
+        if backend.prefills == 0 or any(
+                launches[k] != per_prefill[k] * backend.prefills
+                for k in launches):
+            raise AssertionError(f"{policy}: launches {launches} for "
+                                 f"{backend.prefills} prefills, expected "
+                                 f"{per_prefill} per prefill")
         if c["pick"] or c["batch"]:
             raise AssertionError(f"{policy}: the serving run launched a "
                                  f"flex_score kernel outside its path")
-        if policy == "flex":
-            if c["topk"] == 0 or c["topk"] != c["sweeps"]:
-                raise AssertionError(f"flex: {c['topk']} top-K launches "
-                                     f"for {c['sweeps']} sweeps")
-            flex_launches = flash
+        if policy == "flex" and (c["topk"] == 0 or c["topk"] != c["sweeps"]):
+            raise AssertionError(f"flex: {c['topk']} top-K launches for "
+                                 f"{c['sweeps']} sweeps")
         for r in range(SERVE["n_replicas"]):
             toks = backend.tokens[r]
             if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -1113,21 +1326,51 @@ def serve_end_to_end(dev) -> int:
             if cpu[key] != run[key]:
                 raise AssertionError(f"{policy}: {key} on the card differ "
                                      f"from the CPU engine's")
-        log(f"[serve] {policy}: placements, evictions and admissions equal "
+        log(f"{tag} {policy}: placements, evictions and admissions equal "
             f"the CPU engine's ({len(run['placed'])} placements)")
-        runs[policy] = dict(admitted=run["admitted"],
-                            evicted=st.evicted_events)
+        runs[policy] = dict(placed=run["placed"], evicted=run["evicted"],
+                            admitted=run["admitted"],
+                            evicted_events=st.evicted_events,
+                            launches=launches)
         del backend, eng, run
         gc.collect()   # the engine's wrapped hooks form reference cycles
+    return runs
+
+
+def _same_serving_decisions(what: str, runs: dict, ref: dict) -> None:
+    for policy, run in runs.items():
+        for key in ("placed", "evicted", "admitted"):
+            if run[key] != ref[policy][key]:
+                raise AssertionError(f"{what} {policy}: {key} differ from "
+                                     f"phase h's")
+        log(f"[serve] {what} {policy}: placements, evictions and admissions "
+            f"equal phase h's (stablelm-3b): the engine does not see the "
+            f"model")
+
+
+def serve_end_to_end(dev):
+    """Phase h; returns (the flash kernel's launches in the flex run, the
+    runs' decisions)."""
+    runs = _serve_model(dev, _full_config(), ("flex", "reserve"))
     k = min(len(runs["flex"]["admitted"]), len(runs["reserve"]["admitted"]))
     flex, reserve = (runs[p]["admitted"][k - 1] for p in ("flex", "reserve"))
     log(f"[serve] admitted after {k} steps: flex {flex}, reserve {reserve}")
-    if runs["flex"]["evicted"] == 0:
+    if runs["flex"]["evicted_events"] == 0:
         raise AssertionError("flex never evicted: the budget does not bind")
     if flex < reserve:
         raise AssertionError(f"flex admitted {flex} requests in {k} steps, "
                              f"fewer than reserve's {reserve}")
-    return flex_launches
+    return runs["flex"]["launches"]["flash_attention"], runs
+
+
+def serve_mamba2(dev, ref_runs) -> int:
+    """Phase l: mamba2-370m at full width, flex then reserve; returns the
+    SSD kernel's launches in the flex run."""
+    from repro_torch.configs import get_config
+
+    runs = _serve_model(dev, get_config("mamba2-370m"), ("flex", "reserve"))
+    _same_serving_decisions("mamba2-370m", runs, ref_runs)
+    return runs["flex"]["launches"]["ssd_scan"]
 
 
 def prefill_vs_decode(dev) -> None:
@@ -1167,40 +1410,62 @@ def prefill_vs_decode(dev) -> None:
     if not (torch.isfinite(lp).all() and err <= PREFILL_DECODE_TOL):
         raise AssertionError(f"prefill and decode disagree by {err}")
     del params, cache
+    _smoke_against_cpu(dev, ARCH)
 
-    small = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+
+def _decode_cache(cfg, prefill_cache, batch: int, max_seq: int, dev):
+    """A decode cache of ``max_seq`` positions holding a prefill's cache
+    (the serving path's KV surgery), ``len`` the prompt length."""
+    from repro_torch.launch.serve import write_prefill
+    from repro_torch.models import init_cache
+
+    cache = init_cache(cfg, batch, max_seq, device=dev)
+    write_prefill(cache, prefill_cache, 0)
+    cache["len"] = prefill_cache["len"].clone()
+    return cache
+
+
+def _smoke_against_cpu(dev, arch: str) -> None:
+    """The smoke config in f32: a 45-token prefill and 6 decode steps from
+    its cache, on the card against the CPU port."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    small = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = build_model(small)
     params = model.init(torch.Generator().manual_seed(2))
-    toks = torch.randint(0, small.vocab_size, (2, 45),
+    toks = torch.randint(0, small.vocab_size, (2, 51),
                          generator=torch.Generator().manual_seed(3))
     logits = []
     for device in (dev, torch.device("cpu")):
         p = params.to(device)
-        lp, _ = model.prefill(p, {"tokens": toks.to(device)})
-        cache = init_cache(small, 2, 48, device=device)
+        lp, c = model.prefill(p, {"tokens": toks[:, :45].to(device)})
+        cache = _decode_cache(small, c, 2, 56, device)
         steps = [lp]
-        for t in range(6):
+        for t in range(45, 51):
             ld, cache = model.decode(p, cache, toks[:, t:t + 1].to(device))
             steps.append(ld)
         logits.append(torch.stack(steps).cpu())
     err = float((logits[0] - logits[1]).abs().max())
-    log(f"[pvd] {small.name} f32 prefill (45 tokens) and 6 decode steps: "
-        f"card against the CPU port, max abs difference {err:.3g} "
-        f"(tolerance {SMOKE_TOL})")
+    log(f"[pvd] {small.name} f32 prefill (45 tokens) and 6 decode steps "
+        f"from its cache: card against the CPU port, max abs difference "
+        f"{err:.3g} (tolerance {SMOKE_TOL})")
     if not err <= SMOKE_TOL:
-        raise AssertionError(f"smoke config: card and CPU differ by {err}")
+        raise AssertionError(f"{small.name}: card and CPU differ by {err}")
 
 
-def profile_serving(dev) -> None:
-    """Phase j: where one full-width prefill of 2048 tokens and one decode
-    step of a full replica (8 slots, max_seq 2560) spend their time: the
-    host clock untraced, then the device's kernel time under
+def profile_serving(dev, cfg=None) -> None:
+    """Phase j (and m): where one full-width prefill of 2048 tokens and one
+    decode step of a full replica (8 slots, max_seq 2560) spend their time:
+    the host clock untraced, then the device's kernel time under
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import build_model, init_cache
 
-    cfg = _full_config()
+    cfg = cfg or _full_config()
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1242,12 +1507,78 @@ def profile_serving(dev) -> None:
                 f"{e.self_device_time_total / 1e3:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# phase m: zamba2-7b, and the final state
+# ---------------------------------------------------------------------------
+
+STATE_CHECK_S = 512
+# bf16: prefill (the SSD kernel's chunked form, rounded to bf16 once per
+# layer output) and decode (the recurrence from the kernel's final state
+# and the conv tail) round at different places in each of 48 or 81 layers;
+# the same bound as phase i's prefill-against-decode check.
+STATE_CHECK_TOL = PREFILL_DECODE_TOL
+
+
+def serve_zamba2(dev, ref_runs) -> dict:
+    """Phase m's serving run: zamba2-7b at full width under flex; returns
+    its kernel launches."""
+    from repro_torch.configs import get_config
+
+    runs = _serve_model(dev, get_config("zamba2-7b"), ("flex",))
+    _same_serving_decisions("zamba2-7b", runs, ref_runs)
+    return runs["flex"]["launches"]
+
+
+def final_state_check(dev) -> None:
+    """prefill(tokens[:S]) then decode(tokens[S]) against the last logits
+    of prefill(tokens[:S + 1]), for both full configs in bf16: reads the
+    SSD kernel's final state, the conv tail and the shared K/V."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    s = STATE_CHECK_S
+    for name in ("mamba2-370m", "zamba2-7b"):
+        cfg = get_config(name)
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        params = model.init(gen)
+        toks = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen,
+                             device=dev)
+        _, c = model.prefill(params, {"tokens": toks[:, :s]})
+        cache = _decode_cache(cfg, c, 1, s + 1, dev)
+        del c
+        got, _ = model.decode(params, cache, toks[:, s:s + 1])
+        want, _ = model.prefill(params, {"tokens": toks})
+        real = slice(0, cfg.vocab_size)
+        got, want = got[:, real].float(), want[:, real].float()
+        err = float((got - want).abs().max())
+        top2 = torch.topk(want[0], 2).values
+        same = bool(got.argmax() == want.argmax())
+        log(f"[state] {name} bf16: prefill({s}) + decode against "
+            f"prefill({s + 1}): last logits max abs difference {err:.4f} "
+            f"(tolerance {STATE_CHECK_TOL}; max |logit| "
+            f"{float(want.abs().max()):.3f}, top-2 gap "
+            f"{float(top2[0] - top2[1]):.4f}); argmax equal: {same}")
+        if not (torch.isfinite(got).all() and err <= STATE_CHECK_TOL
+                and same):
+            raise AssertionError(f"{name}: prefill + decode and the longer "
+                                 f"prefill disagree (max {err}, argmax "
+                                 f"equal {same})")
+        del params, cache, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in ("mamba2-370m", "zamba2-7b"):
+        _smoke_against_cpu(dev, arch)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -1277,7 +1608,8 @@ def main() -> int:
 
     kernels = [timed("2", kernel_vs_plain),
                *timed("a", batch_kernels_vs_plain),
-               timed("g", flash_vs_plain)]
+               timed("g", flash_vs_plain),
+               timed("k", ssd_vs_plain)]
     launches, ts, res_seq = timed("3", slice_end_to_end)
     launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
                                               res_seq)
@@ -1288,9 +1620,16 @@ def main() -> int:
     timed("e", small_run_against_cpu, "wavefront")
     timed("5", profile_decisions)
     timed("f", profile_wavefront)
-    launches["flash_attention"] = timed("h", serve_end_to_end)
+    launches["flash_attention"], serve_runs = timed("h", serve_end_to_end)
     timed("i", prefill_vs_decode)
     timed("j", profile_serving)
+    launches["ssd_scan"] = timed("l", serve_mamba2, serve_runs)
+    zamba = timed("m", serve_zamba2, serve_runs)
+    timed("m (final state)", final_state_check)
+    timed("m (profile)", profile_serving, get_config("mamba2-370m"))
+    log(f"[serve] launches on the SSM path: ssd_scan {launches['ssd_scan']}"
+        f" (mamba2-370m, flex), ssd_scan {zamba['ssd_scan']} and "
+        f"flash_attention {zamba['flash_attention']} (zamba2-7b, flex)")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:

@@ -73,15 +73,21 @@ def _leaf(a, device) -> torch.Tensor:
 def model_params_from_numpy(cfg, tree: Mapping[str, Any], *,
                             device="cuda"):
     """The reference's ``model.init`` tree (numpy leaves, ``layers``
-    stacked on a leading L axis) -> the port's :class:`DenseLM`."""
-    from repro_torch.models.model import DenseLM, _require_dense
+    stacked on a leading L axis, the hybrid's ``shared_block`` not) ->
+    the port's :class:`LM`."""
+    from repro_torch.models.model import LM, require_ported
 
-    _require_dense(cfg)
-    layers = [{group: {name: _leaf(leaf[i], device)
-                       for name, leaf in leaves.items()}
-               for group, leaves in tree["layers"].items()}
-              for i in range(cfg.n_layers)]
+    require_ported(cfg)
+
+    def groups(t, i=None):
+        return {group: {name: _leaf(leaf if i is None else leaf[i], device)
+                        for name, leaf in leaves.items()}
+                for group, leaves in t.items()}
+
+    layers = [groups(tree["layers"], i) for i in range(cfg.n_layers)]
     lm_head = tree.get("lm_head")
-    return DenseLM(_leaf(tree["tok_emb"], device), layers,
-                   {k: _leaf(v, device) for k, v in tree["ln_f"].items()},
-                   None if lm_head is None else _leaf(lm_head, device))
+    shared = tree.get("shared_block")
+    return LM(_leaf(tree["tok_emb"], device), layers,
+              {k: _leaf(v, device) for k, v in tree["ln_f"].items()},
+              None if lm_head is None else _leaf(lm_head, device),
+              None if shared is None else groups(shared))

@@ -1,0 +1,104 @@
+"""Launch wrapper of the hand-written CUDA chunked SSD scan kernel.
+
+``ssd_scan_chunked`` (``csrc/ssd_scan.cu``) checks its tensors, launches
+on the current stream and raises if the launch fails; it does not wait
+for the device.  Unlike the reference's pre-chunked Pallas inputs it
+takes the model layout and the chunk length, and chunks inside the
+kernel: a ragged last chunk is zero-padded there (dt = a = 0 past S, so
+the padding changes neither y nor the state).  x, B and C may be strided
+views (only the last dim must be contiguous), as the model's slices of
+one xBC tensor are; a and dt are made contiguous.  ``LAUNCHES`` counts
+its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = 0
+HEAD_DIMS = (16, 32, 64, 128)
+STATE_DIMS = (8, 16, 32, 64, 128)
+MAX_CHUNK = 1024
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _fn():
+    fn = _build.load("ssd_scan").ssd_scan_fwd
+    # Pointers and the stream as c_void_p, strides as 64-bit ints: left
+    # undeclared, ctypes would pass them as 32-bit ints and cut them.
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
+    """x: (Bt, S, H, P); B, C: (Bt, S, N); a = dt * A, dt: (Bt, S, H).
+
+    x, B and C on one CUDA device in one dtype (float32 or bfloat16), P in
+    ``HEAD_DIMS``, N in ``STATE_DIMS``, 1 <= chunk <= ``MAX_CHUNK``; a and
+    dt float32.  Returns y (Bt, S, H, P) in x's dtype and, with
+    ``return_state``, also the final state (Bt, H, P, N) in float32.
+    """
+    caller = "ssd_scan_chunked"
+    if x.dim() != 4 or B.dim() != 3 or C.dim() != 3:
+        raise ValueError(f"{caller}: x must be 4-d and B, C 3-d, got "
+                         f"{tuple(x.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if tuple(B.shape) != (Bt, S, N) or tuple(C.shape) != (Bt, S, N):
+        raise ValueError(f"{caller}: B and C must be (Bt, S, N) = "
+                         f"{(Bt, S, N)}, got {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    if tuple(a.shape) != (Bt, S, H) or tuple(dt.shape) != (Bt, S, H):
+        raise ValueError(f"{caller}: a and dt must be (Bt, S, H) = "
+                         f"{(Bt, S, H)}, got {tuple(a.shape)}, "
+                         f"{tuple(dt.shape)}")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"{caller}: head dim {P} not in {HEAD_DIMS}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"{caller}: state dim {N} not in {STATE_DIMS}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"{caller}: chunk {chunk} not in 1..{MAX_CHUNK}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{caller}: dtype must be float32 or bfloat16, "
+                         f"got {x.dtype}")
+    if a.dtype != torch.float32 or dt.dtype != torch.float32:
+        raise ValueError(f"{caller}: a and dt must be float32, got "
+                         f"{a.dtype}, {dt.dtype}")
+    for name, t in (("x", x), ("B", B), ("C", C), ("a", a), ("dt", dt)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{caller}: {name} must be on one CUDA device "
+                             f"with x, got {t.device}")
+        if name in ("B", "C") and t.dtype != x.dtype:
+            raise ValueError(f"{caller}: {name} is {t.dtype}, x {x.dtype}")
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{caller}: {name} must be contiguous along "
+                             f"its last dim")
+    a, dt = a.contiguous(), dt.contiguous()
+    y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
+    state = (torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
+             if return_state else None)
+    if Bt * H:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _fn()(x.data_ptr(), B.data_ptr(), C.data_ptr(), a.data_ptr(),
+                    dt.data_ptr(), y.data_ptr(),
+                    None if state is None else state.data_ptr(),
+                    _DTYPES[x.dtype], Bt, S, H, P, N, chunk,
+                    *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
+                    stream)
+        if err != 0:
+            raise RuntimeError(f"{caller}: launch failed with CUDA error "
+                               f"{err}")
+        global LAUNCHES
+        LAUNCHES += 1
+    return (y, state) if return_state else y

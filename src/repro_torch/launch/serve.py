@@ -1,14 +1,17 @@
 """Real-model serving driver: Flex admission over live KV caches.
 
 Port of ``repro.launch.serve``.  Each replica is a slot-batched decode
-instance of the model: a cache with ``slots`` sequences.  On admission
-the engine's hook runs a single-request prefill (attention through the
-flash-attention kernel on the card) and writes it into the replica's slot
+instance of the model (dense, ssm or hybrid): a cache with ``slots``
+sequences.  On admission the engine's hook runs a single-request prefill
+(on the card, attention through the flash-attention kernel and the Mamba2
+scan through the SSD scan kernel) and writes it into the replica's slot
 ("KV surgery"); every engine step runs one decode per non-empty replica.
 Flex decides which replica takes each request.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --policy flex --requests 64
   PYTHONPATH=src python -m repro_torch.launch.serve --policy reserve
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --stream burst --rate 2 \\
       --steps 200 --mode wavefront
   # add --device cpu to run on the CPU
@@ -79,13 +82,7 @@ class RealModelBackend:
         logits, cache1 = self.model.prefill(
             self.params, {"tokens": prompt.to(self.device)})
         self.prefills += 1
-        # KV surgery: the slot's row becomes the prompt's K/V, zero-padded
-        # to max_seq; the replica's shared len is left alone.
-        cache = self.caches[r]
-        S = req.prompt_len
-        for key in ("k", "v"):
-            cache[key][:, slot, :S] = cache1[key][:, 0]
-            cache[key][:, slot, S:] = 0
+        write_prefill(self.caches[r], cache1, slot)
         self.tokens[r][slot, 0] = torch.argmax(logits[0]).to(torch.int32)
 
     def on_evict(self, req: Request):
@@ -107,6 +104,26 @@ class RealModelBackend:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.time() - t0
+
+
+def write_prefill(cache: Dict, prefill_cache: Dict, slot: int) -> None:
+    """KV surgery: write a prefill's cache (batch b) into slots ``slot`` to
+    ``slot + b - 1`` of a decode cache, over every leaf but ``len``.  K/V
+    (and the hybrid's shared K/V pair) are zero-padded along the sequence
+    to the decode cache's length; conv windows and SSM states are copied
+    as they are."""
+    for key, src in prefill_cache.items():
+        if key == "len":
+            continue
+        if key in ("conv", "state"):
+            cache[key][:, slot:slot + src.shape[1]] = src
+            continue
+        for s, d in zip(src if isinstance(src, tuple) else (src,),
+                        cache[key] if isinstance(src, tuple)
+                        else (cache[key],)):
+            b, S = s.shape[1], s.shape[2]
+            d[:, slot:slot + b, :S] = s
+            d[:, slot:slot + b, S:] = 0
 
 
 def make_workload(n: int, seed: int = 0, *, prompt=(8, 24), true=(4, 40)):

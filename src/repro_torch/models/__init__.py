@@ -1,6 +1,6 @@
-"""The model substrate (dense family) on PyTorch."""
+"""The model substrate (dense, ssm and hybrid families) on PyTorch."""
 from repro_torch.models.model import (  # noqa: F401
-    DenseLM,
+    LM,
     Model,
     build_model,
     cache_specs,

@@ -1,46 +1,52 @@
-"""Model builder (port of ``repro.models.model``), dense family.
+"""Model builder (port of ``repro.models.model``): the dense, ssm and
+hybrid families.
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
-  init(generator)                 -> params (a :class:`DenseLM` module)
+  init(generator)                 -> params (an :class:`LM` module)
   prefill(params, batch)          -> (last-position logits, cache)
   decode(params, cache, tokens)   -> (logits, cache)
 
 Parameters keep the reference's names and layouts (``x @ w`` weights of
 shape (d_in, d_out), float32 norm weights); the layer stack is a loop
-over per-layer modules instead of a ``lax.scan`` over stacked leaves.
-The cache keeps the reference's layout: ``k``, ``v`` of shape (L, B,
-Smax, KV, hd) and a 0-d int32 ``len``.  ``decode`` writes the new K/V
-into the cache tensors in place (the reference returns new arrays) and
-returns a new dict around them; like the reference's
-``dynamic_update_slice`` it clamps the write position to Smax - 1.
+over per-layer modules instead of a ``lax.scan`` over stacked leaves, and
+a Python ``if`` takes the place of the hybrid's ``lax.cond``.  The cache
+keeps the reference's layout and a 0-d int32 ``len``: ``k``, ``v`` of
+shape (L, B, Smax, KV, hd) (dense); ``conv`` (L, B, W-1, conv_dim),
+``state`` (L, B, H, P, N) float32 and, for the hybrid, ``shared``, a
+(k, v) pair of (n_inv, B, Smax, KV, hd) for the shared attention block's
+invocations.  ``decode`` writes into the cache tensors in place (the
+reference returns new arrays) and returns a new dict around them; like
+the reference's ``dynamic_update_slice`` it clamps the K/V write
+position to Smax - 1.
 
-Only the dense family is ported; the others raise NotImplementedError.
-``loss`` and training are a later slice (ROADMAP queue 1 item 8).
+The moe, encdec and vlm families raise NotImplementedError; ``loss`` and
+training are a later slice (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Batch = Dict[str, torch.Tensor]
 
+PORTED = ("dense", "ssm", "hybrid")
+MAMBA = ("ssm", "hybrid")            # the families with Mamba2 layers
 _LATER = {
     "moe": "ROADMAP queue 1 item 8 (models/moe.py)",
-    "ssm": "ROADMAP queue 1 item 8 (models/ssm.py) with kernel 2.5",
-    "hybrid": "ROADMAP queue 1 item 8 (models/ssm.py) with kernel 2.5",
     "encdec": "ROADMAP queue 1 item 8 (the encoder-decoder stack)",
     "vlm": "ROADMAP queue 1 item 8 (the VLM patch front end)",
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
             f"{_LATER.get(cfg.family, 'ROADMAP queue 1 item 8')} brings it")
@@ -52,31 +58,37 @@ def _params(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One transformer layer's parameters: ln1, attn, ln2, mlp."""
+    """One layer's parameter groups, by the reference's names: ln1, attn,
+    ln2, mlp (a transformer layer or the hybrid's shared block), or ln1,
+    ssm (a Mamba2 layer)."""
 
     def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
-        for name in ("ln1", "attn", "ln2", "mlp"):
-            setattr(self, name, _params(tree[name]))
+        for name, group in tree.items():
+            setattr(self, name, _params(group))
 
 
-class DenseLM(nn.Module):
-    """Embedding, per-layer blocks, final norm and LM head."""
+class LM(nn.Module):
+    """Embedding, per-layer blocks, the hybrid's shared block, final norm
+    and LM head."""
 
-    def __init__(self, tok_emb: torch.Tensor, layers, ln_f, lm_head=None):
+    def __init__(self, tok_emb: torch.Tensor, layers, ln_f, lm_head=None,
+                 shared_block=None):
         super().__init__()
         self.tok_emb = nn.Parameter(tok_emb, requires_grad=False)
         self.layers = nn.ModuleList(Block(t) for t in layers)
         self.ln_f = _params(ln_f)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
+        self.shared_block = (None if shared_block is None
+                             else Block(shared_block))
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable[[torch.Generator], DenseLM]
-    prefill: Callable[[DenseLM, Batch], Tuple[torch.Tensor, Dict]]
-    decode: Callable[[DenseLM, Dict, torch.Tensor], Tuple[torch.Tensor, Dict]]
+    init: Callable[[torch.Generator], LM]
+    prefill: Callable[[LM, Batch], Tuple[torch.Tensor, Dict]]
+    decode: Callable[[LM, Dict, torch.Tensor], Tuple[torch.Tensor, Dict]]
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +149,9 @@ def _attn_decode(cfg, p, x, k_cache, v_cache, pos):
 # ---------------------------------------------------------------------------
 
 def _layer_init(cfg: ModelConfig, gen: torch.Generator):
+    if cfg.family in MAMBA:
+        return {"ln1": L.norm_init(cfg, cfg.d_model, gen.device),
+                "ssm": SSM.ssm_init(cfg, gen)}
     return {"ln1": L.norm_init(cfg, cfg.d_model, gen.device),
             "attn": _attn_init(cfg, gen),
             "ln2": L.norm_init(cfg, cfg.d_model, gen.device),
@@ -159,7 +174,75 @@ def _block_decode(cfg, lp: Block, h, kc, vc, pos):
     return h + y, kc, vc
 
 
-def _lm_head(cfg, params: DenseLM, h):
+# ---------------------------------------------------------------------------
+# Mamba2 stacks (ssm / hybrid)
+# ---------------------------------------------------------------------------
+
+def _shared_idx(cfg) -> Tuple[List[int], int]:
+    """Per-layer invocation index for the hybrid shared attention block
+    (-1: none), and the number of invocations."""
+    idx, n = [], 0
+    for i in range(cfg.n_layers):
+        if cfg.attn_every and (i % cfg.attn_every == cfg.attn_every - 1):
+            idx.append(n)
+            n += 1
+        else:
+            idx.append(-1)
+    return idx, n
+
+
+def n_shared_invocations(cfg) -> int:
+    return _shared_idx(cfg)[1] if cfg.family == "hybrid" else 0
+
+
+def _inv_idx(cfg) -> List[int]:
+    return (_shared_idx(cfg)[0] if cfg.family == "hybrid"
+            else [-1] * cfg.n_layers)
+
+
+def _ssm_stack_full(cfg, params: LM, h):
+    """Prefill through a Mamba2 stack.  Returns (h, conv (L, B, W-1,
+    conv_dim), state (L, B, H, P, N), shared (k, v) or None)."""
+    convs, states, ks, vs = [], [], [], []
+    for lp, inv in zip(params.layers, _inv_idx(cfg)):
+        y, c = SSM.ssm_apply(cfg, lp.ssm, L.apply_norm(cfg, h, lp.ln1),
+                             with_cache=True)
+        h = h + y
+        convs.append(c.conv)
+        states.append(c.state)
+        if inv >= 0:
+            sp = params.shared_block
+            y, (k, v) = _attn_full(cfg, sp.attn, L.apply_norm(cfg, h, sp.ln1))
+            h = h + y
+            h = h + L.mlp_apply(cfg, sp.mlp, L.apply_norm(cfg, h, sp.ln2))
+            ks.append(k)
+            vs.append(v)
+    shared = (torch.stack(ks), torch.stack(vs)) if ks else None
+    return h, torch.stack(convs), torch.stack(states), shared
+
+
+def _ssm_stack_decode(cfg, params: LM, h, cache, pos):
+    """One-token decode through a Mamba2 stack; writes the conv windows,
+    the states and the shared K/V into the cache in place."""
+    for i, (lp, inv) in enumerate(zip(params.layers, _inv_idx(cfg))):
+        y, c = SSM.ssm_decode(cfg, lp.ssm, L.apply_norm(cfg, h, lp.ln1),
+                              SSM.SSMCache(cache["conv"][i],
+                                           cache["state"][i]))
+        h = h + y
+        cache["conv"][i].copy_(c.conv)
+        cache["state"][i].copy_(c.state)
+        if inv >= 0:
+            sp = params.shared_block
+            sk, sv = cache["shared"][0][inv], cache["shared"][1][inv]
+            y, _, _ = _attn_decode(cfg, sp.attn,
+                                   L.apply_norm(cfg, h, sp.ln1)[:, 0],
+                                   sk, sv, pos)
+            h = h + y[:, None, :]
+            h = h + L.mlp_apply(cfg, sp.mlp, L.apply_norm(cfg, h, sp.ln2))
+    return h
+
+
+def _lm_head(cfg, params: LM, h):
     h = L.apply_norm(cfg, h, params.ln_f)
     w = params.tok_emb.T if cfg.tie_embeddings else params.lm_head
     logits = h @ w
@@ -174,40 +257,56 @@ def _lm_head(cfg, params: DenseLM, h):
 # ---------------------------------------------------------------------------
 
 def build_model(cfg: ModelConfig) -> Model:
-    _require_dense(cfg)
+    require_ported(cfg)
     dt = getattr(torch, cfg.dtype)
+    mamba = cfg.family in MAMBA
 
-    def init(gen: torch.Generator) -> DenseLM:
+    def init(gen: torch.Generator) -> LM:
         """Random weights drawn from ``gen``, on ``gen``'s device."""
         tok_emb = L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt)
         layers = [_layer_init(cfg, gen) for _ in range(cfg.n_layers)]
         lm_head = (None if cfg.tie_embeddings else
                    L.dense_init(gen, cfg.d_model, cfg.vocab_padded, dt))
-        return DenseLM(tok_emb, layers,
-                       L.norm_init(cfg, cfg.d_model, gen.device), lm_head)
+        shared = None
+        if cfg.family == "hybrid":
+            shared = {"ln1": L.norm_init(cfg, cfg.d_model, gen.device),
+                      "attn": _attn_init(cfg, gen),
+                      "ln2": L.norm_init(cfg, cfg.d_model, gen.device),
+                      "mlp": L.mlp_init(cfg, gen, cfg.d_model, cfg.d_ff)}
+        return LM(tok_emb, layers, L.norm_init(cfg, cfg.d_model, gen.device),
+                  lm_head, shared)
 
     @torch.no_grad()
-    def prefill(params: DenseLM, batch: Batch):
+    def prefill(params: LM, batch: Batch):
         tokens = batch["tokens"]
         h = params.tok_emb[tokens.long()]
-        S = h.shape[1]
-        ks, vs = [], []
-        for lp in params.layers:
-            h, (k, v) = _block_full(cfg, lp, h)
-            ks.append(k)
-            vs.append(v)
+        cache = {"len": torch.tensor(h.shape[1], dtype=torch.int32,
+                                     device=h.device)}
+        if mamba:
+            h, cache["conv"], cache["state"], shared = _ssm_stack_full(
+                cfg, params, h)
+            if cfg.family == "hybrid":
+                cache["shared"] = shared
+        else:
+            ks, vs = [], []
+            for lp in params.layers:
+                h, (k, v) = _block_full(cfg, lp, h)
+                ks.append(k)
+                vs.append(v)
+            cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
         logits = _lm_head(cfg, params, h[:, -1:, :])[:, 0]
-        cache = {"len": torch.tensor(S, dtype=torch.int32, device=h.device),
-                 "k": torch.stack(ks), "v": torch.stack(vs)}
         return logits, cache
 
     @torch.no_grad()
-    def decode(params: DenseLM, cache: Dict, tokens: torch.Tensor):
+    def decode(params: LM, cache: Dict, tokens: torch.Tensor):
         pos = cache["len"]
         h = params.tok_emb[tokens.long()]                    # (B, 1, D)
-        for i, lp in enumerate(params.layers):
-            h, _, _ = _block_decode(cfg, lp, h, cache["k"][i],
-                                    cache["v"][i], pos)
+        if mamba:
+            h = _ssm_stack_decode(cfg, params, h, cache, pos)
+        else:
+            for i, lp in enumerate(params.layers):
+                h, _, _ = _block_decode(cfg, lp, h, cache["k"][i],
+                                        cache["v"][i], pos)
         logits = _lm_head(cfg, params, h[:, -1:, :])[:, 0]
         return logits, dict(cache, len=pos + 1)
 
@@ -219,17 +318,33 @@ def build_model(cfg: ModelConfig) -> Model:
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
-    """Cache leaf name -> (shape, dtype) for decode at (batch, max_seq)."""
-    _require_dense(cfg)
+    """Cache leaf name -> (shape, dtype) for decode at (batch, max_seq);
+    the hybrid's ``shared`` maps to a (k, v) pair of them."""
+    require_ported(cfg)
     dt = getattr(torch, cfg.dtype)
-    kv = ((cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_), dt)
-    return {"len": ((), torch.int32), "k": kv, "v": kv}
+    Ld = cfg.n_layers
+    KV, hd = cfg.n_kv_heads, cfg.head_dim_
+    c = {"len": ((), torch.int32)}
+    if cfg.family in MAMBA:
+        d_inner, n, heads, conv_dim = SSM.ssm_dims(cfg)
+        c["conv"] = ((Ld, batch, cfg.conv_width - 1, conv_dim), dt)
+        c["state"] = ((Ld, batch, heads, cfg.ssm_head_dim, n), torch.float32)
+        if cfg.family == "hybrid":
+            kv = ((n_shared_invocations(cfg), batch, max_seq, KV, hd), dt)
+            c["shared"] = (kv, kv)
+        return c
+    c["k"] = c["v"] = ((Ld, batch, max_seq, KV, hd), dt)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, filled: int = 0,
                *, device="cuda"):
-    cache = {name: torch.zeros(shape, dtype=dtype, device=device)
-             for name, (shape, dtype) in cache_specs(cfg, batch,
-                                                     max_seq).items()}
+    def zeros(spec):
+        if isinstance(spec[1], torch.dtype):
+            return torch.zeros(spec[0], dtype=spec[1], device=device)
+        return tuple(zeros(s) for s in spec)
+
+    cache = {name: zeros(spec)
+             for name, spec in cache_specs(cfg, batch, max_seq).items()}
     cache["len"] = torch.tensor(filled, dtype=torch.int32, device=device)
     return cache

@@ -19,7 +19,8 @@ FIRST = ["repro_torch", "repro_torch.core", "repro_torch.api",
          "repro_torch.estimators", "repro_torch.traces",
          "repro_torch.kernels.flex_score", "repro_torch.convert",
          "repro_torch.configs", "repro_torch.models", "repro_torch.serving",
-         "repro_torch.launch", "repro_torch.kernels.flash_attention"]
+         "repro_torch.launch", "repro_torch.kernels.flash_attention",
+         "repro_torch.kernels.ssd_scan"]
 
 _CHECK = r"""
 import importlib, pkgutil, sys

@@ -1,13 +1,15 @@
 """The port's real-model serving driver against the JAX reference.
 
-Both backends serve the smoke stablelm-3b in float32 with the same
-weights (the reference's ``model.init``, carried across), behind engines
-whose ``decode_fn`` runs the backend's decode and reports a constant step
-time (real wall times would feed the straggler inflation and make the
-runs diverge).  The greedy tokens must be equal at every step, and the
-KV caches equal within 1e-4 (float32 sum order), over a run long enough
-for the replica's shared ``len`` to pass ``max_seq``: the backend writes
-every slot's new K/V at that shared position, clamped to ``max_seq - 1``.
+Both backends serve a smoke model in float32 (stablelm-3b, mamba2-370m
+and zamba2-7b: the dense, ssm and hybrid families) with the same weights
+(the reference's ``model.init``, carried across), behind engines whose
+``decode_fn`` runs the backend's decode and reports a constant step time
+(real wall times would feed the straggler inflation and make the runs
+diverge).  The greedy tokens must be equal at every step, and every
+cache leaf (K/V; conv windows, SSM states and the hybrid's shared K/V)
+equal within 1e-4 (float32 sum order), over a run long enough for the
+replica's shared ``len`` to pass ``max_seq``: the backend writes every
+slot's new K/V at that shared position, clamped to ``max_seq - 1``.
 """
 import dataclasses
 
@@ -29,13 +31,23 @@ torch.set_num_threads(1)
 ARCH = "stablelm-3b"
 
 
-def _engines(monkeypatch, max_seq):
-    j_cfg = dataclasses.replace(j_serve.get_smoke_config(ARCH),
+def _leaves(cache):
+    out = {}
+    for key, v in cache.items():
+        if isinstance(v, tuple):
+            out.update({f"{key}.{i}": x for i, x in enumerate(v)})
+        elif key != "len":
+            out[key] = v
+    return out
+
+
+def _engines(monkeypatch, max_seq, arch=ARCH):
+    j_cfg = dataclasses.replace(j_serve.get_smoke_config(arch),
                                 dtype="float32")
     monkeypatch.setattr(j_serve, "get_smoke_config", lambda arch: j_cfg)
-    jb = j_serve.RealModelBackend(ARCH, 2, 4, max_seq=max_seq)
-    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
-    tb = serve.RealModelBackend(ARCH, 2, 4, max_seq=max_seq, cfg=cfg,
+    jb = j_serve.RealModelBackend(arch, 2, 4, max_seq=max_seq)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    tb = serve.RealModelBackend(arch, 2, 4, max_seq=max_seq, cfg=cfg,
                                 device="cpu")
     tb.params = model_params_from_numpy(
         cfg, jax.tree.map(np.asarray, jb.params), device="cpu")
@@ -55,8 +67,9 @@ def _engines(monkeypatch, max_seq):
     return engines
 
 
-def test_backend_matches_reference(monkeypatch):
-    (jb, je), (tb, te) = _engines(monkeypatch, max_seq=32)
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-370m", "zamba2-7b"])
+def test_backend_matches_reference(monkeypatch, arch):
+    (jb, je), (tb, te) = _engines(monkeypatch, max_seq=32, arch=arch)
     for step in range(40):
         je.step()
         te.step()
@@ -64,9 +77,11 @@ def test_backend_matches_reference(monkeypatch):
             assert np.array_equal(np.asarray(jb.tokens[r]),
                                   tb.tokens[r].numpy()), (step, r)
             assert int(tb.caches[r]["len"]) == int(jb.caches[r]["len"])
-            for key in ("k", "v"):
-                err = np.abs(np.asarray(jb.caches[r][key])
-                             - tb.caches[r][key].numpy()).max()
+            want, got = _leaves(jb.caches[r]), _leaves(tb.caches[r])
+            assert set(got) == set(want)
+            for key in want:
+                err = np.abs(np.asarray(want[key])
+                             - got[key].numpy()).max()
                 assert err < 1e-4, (step, r, key, err)
     assert jb.slot_of == tb.slot_of and jb.free == tb.free
     # the shared len ran past max_seq on a replica that decoded every step
