@@ -6,7 +6,8 @@
 Phases, one line each (or a few):
 
   1. device: the card's name and power limit; build every CUDA kernel
-     from this checkout's sources, timed.
+     from this checkout's sources, timed, with each kernel's registers,
+     shared memory and spills as ptxas reports them.
   2. kernel against plain: the flex_score pick kernel and its plain
      PyTorch version on the same CUDA tensors, bit for bit, at
      N in {4000, 4097, 100000} (random, tied, all-infeasible, cap < 1 and
@@ -51,9 +52,10 @@ width, after phase a and after phase f:
      one full-width attention layer's (B, S, H, hd) projections through
      ``chunked_attention`` as the serving path calls it, in f32 (max abs
      error within 2e-5) and bf16 (2e-2, and each element within one bf16
-     rounding step of the plain value); times at S = 2048 and 4096 beside the bound, the plain
-     version and ``scaled_dot_product_attention`` (timed only, as a
-     yardstick).
+     rounding step of the plain value); times at S = 2048 and 4096 (eager,
+     and replayed from a CUDA graph) beside the earlier design's, the
+     bound, the plain version and ``scaled_dot_product_attention`` (timed
+     only, as a yardstick).
   h. the slice end to end: ``RealModelBackend`` with the full config in
      bf16 (random weights), 2 replicas x 8 slots, flex in wavefront mode
      and then reserve over 32 requests with 512-2048-token prompts and a
@@ -76,8 +78,9 @@ after phase j:
      Q = 256), in f32 (within 5e-4 max(1, Q / 64) of the largest plain
      value) and bf16 (each y element within one bf16 rounding step of the
      plain value plus that), and through ``ssm_apply`` on one full-width
-     layer's projections; times at S = 2048 and 4096 beside the bound and
-     the plain version (no library call computes the scan).
+     layer's projections; times at S = 2048 and 4096 (eager, and replayed
+     from a CUDA graph) beside the earlier design's, the bound and the
+     plain versions (no library call computes the scan).
   l. mamba2-370m at full width in bf16 behind ``RealModelBackend``, flex
      then reserve over phase h's workload and budget: 48 SSD launches per
      prefill, decisions equal to the CPU replay's and to phase h's.
@@ -827,6 +830,10 @@ FLASH_TEST_CASES = ((1, 4, 4, 128, 64, True, 0), (2, 4, 2, 256, 64, True, 0),
 FLASH_PREFILL_S = (1, 37, 512, 1000, 2048, 4096)
 FLASH_TIMED_S = (2048, 4096)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# The earlier (mma.sync) design's times at the timed shapes, from PERF.md's
+# kernel table: its run P2 at S = 2048, its run H at S = 4096 (NVIDIA H100
+# 80GB HBM3, 700.00 W); logged beside this run's times.
+FLASH_EARLIER_MS = {2048: ("run P2", 0.4855), 4096: ("run H", 1.3564)}
 # A bf16 case is also held, element by element, to one bf16 rounding step
 # of the plain value plus the float32 arithmetic's error before it: both
 # sides accumulate in float32 (the kernel carries P as two bf16 halves,
@@ -930,11 +937,19 @@ def flash_vs_plain(dev) -> dict:
         plain_ms = _event_ms(lambda: attention_ref(q, k, v), reps=5)
         lib_ms = _event_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=10)
+        # Device time alone: 20 launches replayed from a CUDA graph.
+        graph_ms = _median_ms(lambda: flash_attention_bhsd(q, k, v), reps=5,
+                              inner=20)
+        lib_graph_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=5, inner=20)
         bound_ms, bound_by = _flash_bound(1, 32, 32, s, 80, 2)
         timed[s] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
-        log(f"[flash] B=1 H=32 hd=80 S={s} causal bf16: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
-            f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+        run, earlier = FLASH_EARLIER_MS[s]
+        log(f"[flash] B=1 H=32 hd=80 S={s} causal bf16: kernel {ms:.4f} ms "
+            f"(graph replay {graph_ms:.4f} ms; the earlier design "
+            f"{earlier:.4f} ms in {run}), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms (graph replay "
+            f"{lib_graph_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / ms:.4f} of it")
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed[FLASH_TIMED_S[0]]
     return dict(name="flash_attention", route="cuda",
@@ -961,6 +976,11 @@ SSD_PREFILL_S = (512, 1337, 2048, 4096)
 SSD_TIMED_S = (2048, 4096)
 SSD_LAYER_S = (37, 2048)
 SSD_CHUNK = 256
+# The earlier (one block per (b, h), CUDA-core) design's times at the timed
+# shapes, from PERF.md's kernel table: its run P2 (NVIDIA H100 80GB HBM3,
+# 700.00 W); logged beside this run's times.
+SSD_EARLIER_MS = {("mamba2-370m", 2048): 3.0432, ("mamba2-370m", 4096): 6.3754,
+                  ("zamba2-7b", 2048): 2.5286, ("zamba2-7b", 4096): 4.9790}
 # float32: the kernel sums the chunk's dual form in another order than the
 # sequential recurrence (ssd_ref) and than ssd_chunked's einsums; the JAX
 # test's bound, 5e-4 * max(1, Q / 64), taken relative to the largest plain
@@ -1097,11 +1117,18 @@ def ssd_vs_plain(dev) -> dict:
             plain_ms = _event_ms(lambda: ssd_ref(*args), reps=3)
             chunked_ms = _event_ms(lambda: SSM.ssd_chunked(*args, SSD_CHUNK),
                                    reps=10)
+            # Device time alone (the three kernels and the adapter's
+            # element-wise ops): 20 calls replayed from a CUDA graph.
+            graph_ms = _median_ms(lambda: ssd_scan(*args, SSD_CHUNK,
+                                                   return_state=True),
+                                  reps=5, inner=20)
             bound_ms, bound_by = _ssd_bound(1, s, h, p, n, SSD_CHUNK, 2)
             timed[(name, s)] = (ms, plain_ms, bound_ms, bound_by)
             log(f"[ssd] {name} B=1 H={h} P={p} N={n} S={s} Q={SSD_CHUNK} "
-                f"bf16: kernel {ms:.4f} ms, plain (ssd_ref) {plain_ms:.4f} "
-                f"ms, ssd_chunked {chunked_ms:.4f} ms (kernel / ssd_chunked "
+                f"bf16: kernel {ms:.4f} ms (graph replay {graph_ms:.4f} ms; "
+                f"the earlier design {SSD_EARLIER_MS[(name, s)]:.4f} ms in "
+                f"run P2), plain (ssd_ref) {plain_ms:.4f} ms, ssd_chunked "
+                f"{chunked_ms:.4f} ms (kernel / ssd_chunked "
                 f"{ms / chunked_ms:.4f}), library: none; bound "
                 f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of it")
     ms, plain_ms, bound_ms, bound_by = timed[(SSD_FULL[0][0],
@@ -1456,6 +1483,12 @@ def _smoke_against_cpu(dev, arch: str) -> None:
         raise AssertionError(f"{small.name}: card and CPU differ by {err}")
 
 
+# Kernel names of the port's prefill kernels in a profiler trace.
+PORT_KERNELS = {"flash_attention": ("flash_fwd_",),
+                "ssd_scan": ("chunk_state", "state_pass", "chunk_scan",
+                             "ssd_fwd")}
+
+
 def profile_serving(dev, cfg=None) -> None:
     """Phase j (and m): where one full-width prefill of 2048 tokens and one
     decode step of a full replica (8 slots, max_seq 2560) spend their time:
@@ -1505,6 +1538,15 @@ def profile_serving(dev, cfg=None) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
             log(f"[sprofile]   {e.key[:60]}: {e.count} calls, "
                 f"{e.self_device_time_total / 1e3:.3f} ms")
+        # The port's own kernels: flash attention, and the SSD scan's three
+        # passes together.
+        for port, names in PORT_KERNELS.items():
+            mine = [e for e in kernels if any(n in e.key for n in names)]
+            if mine:
+                ms = sum(e.self_device_time_total for e in mine) / 1e3
+                log(f"[sprofile]   {port} (port): {sum(e.count for e in mine)}"
+                    f" kernels, {ms:.3f} ms, {ms / busy_ms:.4f} of the "
+                    f"device time")
 
 
 # ---------------------------------------------------------------------------
@@ -1596,9 +1638,13 @@ def main() -> int:
     log(f"[device] built {sorted(build_logs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in build_logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "smem" in line:
-                log(f"[device]   {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "smem" in line or (
+                    "spill" in line and " 0 bytes spill stores" not in line):
+                log(f"[device]   {name}: {entry}: {line.strip()}")
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()

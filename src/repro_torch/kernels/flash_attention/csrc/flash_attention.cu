@@ -4,51 +4,77 @@
 // `_kernel` (via `flash_attention_bhsd`): masked softmax(q k^T / sqrt(hd)) v
 // per query row, with GQA (query head h reads kv head h / (H / KV)), causal
 // and sliding-window masks, fully masked key tiles skipped, float32
-// accumulation, and the input's dtype (float32 or bfloat16) out.
+// accumulation, and the input's dtype (float32 or bfloat16) out.  A loop
+// inside each block over 64-row key/value tiles takes the place of the TPU
+// kernel's sequential `ik` grid axis; the running max, sum and output of an
+// online softmax stay in registers.  Rows and columns past the sequence ends
+// are masked, so any length works.  hd is a template parameter (32, 64, 80,
+// 112, 128).
 //
-// Design.  One block of 128 threads (4 warps) owns one (batch, head, 64-row
-// query tile); the grid covers every (b, h) cell at once.  A loop inside the
-// block over 64-row key/value tiles takes the place of the TPU kernel's
-// sequential `ik` grid axis: each tile is loaded once into shared memory,
-// scored against the query tile, and folded into an online softmax whose
-// running max, sum and output accumulator stay in registers.  Rows and
-// columns past the sequence ends are masked, so any length works, and key
-// tiles wholly outside the causal or window band are never loaded.  hd is a
-// template parameter (32, 64, 80, 112, 128).
+// Bound at the serving path's shape (stablelm-3b prefill, B = 1, H = 32,
+// hd = 80, causal): 4 (S (S + 1) / 2) hd H operations, 21.5 GFLOP at
+// S = 2048, over 989 TFLOP/s of bf16 tensor-core peak is 21.7 us; q, k, v
+// and o once (41.9 MB) over 3.35 TB/s is 12.5 us.  Operations bound it.
 //
-//   * bfloat16 (the serving path): tensor cores, mma.sync m16n8k16 with
-//     float32 accumulation.  Warp w owns query rows 16 w .. 16 w + 15; its
-//     q fragments stay in registers; K and V tiles sit row-major in shared
-//     memory, V read through ldmatrix.trans.  The scores leave the tensor
-//     cores in float32 and are scaled (in log2 units, for exp2f), masked
-//     (edge tiles only) and exponentiated there; P goes back in as two bf16
-//     halves (P = hi + lo, two products), so P.V keeps about 16 bits of P
-//     and the kernel stays as close to the float32 plain version as the
-//     float32 path.
-//   * float32: CUDA cores.  Thread (ty, tx) = (tid / 8, tid % 8) owns query
-//     rows ty + 16 i (i < 4), score columns tx + 8 j (j < 8) and output
-//     columns tx + 8 jj; the eight lanes of a row reduce by warp shuffles.
+// bfloat16 (the serving path): one block of three warpgroups per (b, h,
+// 128-row query tile), what the four faults of the earlier mma.sync design
+// called for:
 //
-// Every product is an explicit fmaf or mma, so the result does not depend on
-// the shared -fmad=false build flag (which the bit-exact flex_score kernels
-// need); attention is held to a tolerance, not to bits.
+//   * mma.sync m16n8k16 -> wgmma.  Two consumer warpgroups own 64 query rows
+//     each.  S = Q K^T is wgmma m64n64k16 with Q and K both read from shared
+//     memory, K-major (K is stored [key][d]); O += P V is wgmma m64n{hd}k16
+//     with P from registers (the score accumulator's layout is the A
+//     operand's, so P never leaves the registers) and V read from shared
+//     memory as an MN-major (transposed) B operand.
+//   * synchronous loads into static shared memory -> TMA and a ring.  A
+//     producer warpgroup (setmaxnreg lowered to 24; one thread issues the
+//     copies) loads the Q tile once and keeps K/V tiles of 64 keys in
+//     flight in a ring of three stages, each with a full and an empty
+//     mbarrier, so copies overlap both consumers' products.  Tensor maps
+//     over the strided (B, S, H, hd) views are built on the host per call
+//     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+//     the library needs no -lcuda) and passed as __grid_constant__
+//     arguments; their out-of-bounds zero fill covers ragged S.  hd = 80
+//     and 112 are not multiples of 64, so every tile is stored as 16-column
+//     TMA boxes with the 32-byte swizzle (5 boxes a row at hd = 80, 7 at
+//     112), which both wgmma descriptors read (layout type B32).
+//   * 4 warps on 64 query rows -> 12 warps on 128 rows: each K/V tile is
+//     loaded once for two consumers, and one consumer can use the tensor
+//     cores while the other runs its softmax.
+//   * P as two bf16 halves stays (P = hi + lo, two P.V products, 1.5x the
+//     minimum tensor-core work): P keeps about 16 bits, as the card's
+//     element-wise check of the bf16 path needs where outputs cancel.
 //
-// Bound at the serving path's shapes (stablelm-3b prefill, B = 1, H = 32,
-// hd = 80, causal): 4 (S^2 / 2) hd H operations, 21.5 GFLOP at S = 2048,
-// over 989 TFLOP/s of bf16 tensor-core peak is 21.7 us; q, k, v and o once
-// (41.9 MB) over 3.35 TB/s is 12.5 us.  Operations bound it.  The bf16 path
-// spends 1.5x the minimum tensor-core work (the split P) and issues mma.sync
-// with no copy/compute overlap; wgmma tiles, TMA loads and warp
-// specialisation are the later work that would approach the bound.
+// At hd = 80 the softmax, not the products, sets the pace, so it is kept
+// short: the scores leave the tensor cores in float32; in edge tiles only,
+// masked ones become -inf; p = 2^(s scale2 - m) is one fma and one ex2;
+// O is rescaled only when a row maximum moved, and normalised by one
+// reciprocal a row.  Key tiles wholly outside the causal or window band of
+// the 128-row tile are never loaded; a consumer skips the products of a
+// tile that is masked for all of its 64 rows.  The grid runs the longest
+// causal query tiles first.  O is written, bf16, into the consumer's
+// (finished) slice of the Q tile in the same swizzled layout and stored by
+// TMA, which clips rows past Sq.  The launcher requires 16-byte aligned
+// bases and strides (TMA's rule).
+//
+// float32: CUDA cores, one block of 128 threads (4 warps) per (b, h, 64-row
+// query tile).  Thread (ty, tx) = (tid / 8, tid % 8) owns query rows
+// ty + 16 i (i < 4), score columns tx + 8 j (j < 8) and output columns
+// tx + 8 jj; the eight lanes of a row reduce by warp shuffles.
+//
+// Every product is an explicit fmaf or wgmma, so the result does not
+// depend on the shared -fmad=false build flag (which the bit-exact
+// flex_score kernels need); attention is held to a tolerance, not to bits.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per tile
-constexpr int THREADS = 128;  // 4 warps
+constexpr int BQ = 64;        // float32: query rows per block
+constexpr int BK = 64;        // key rows per tile (both paths)
+constexpr int THREADS = 128;  // float32: 4 warps
 constexpr float NEG = -1e30f;
 
 struct Strides {
@@ -61,10 +87,10 @@ __device__ __forceinline__ bool attends(int row, int col, int Sk, int causal,
          (window <= 0 || col > row - window);
 }
 
-// Key tiles [lo, hi) that hold an unmasked column for queries [q0, q0 + BQ).
-__device__ __forceinline__ int2 key_tiles(int q0, int Sq, int Sk, int causal,
-                                          int window) {
-  const int q_last = min(q0 + BQ, Sq) - 1;
+// Key tiles [lo, hi) that hold an unmasked column for queries [q0, q0 + bq).
+__device__ __forceinline__ int2 key_tiles(int q0, int bq, int Sq, int Sk,
+                                          int causal, int window) {
+  const int q_last = min(q0 + bq, Sq) - 1;
   const int n_kt = (Sk + BK - 1) / BK;
   const int hi = causal ? min(n_kt, q_last / BK + 1) : n_kt;
   const int lo_col = window > 0 ? q0 - window + 1 : 0;
@@ -120,7 +146,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / HD, d = i % HD, s = q0 + r;
     Qs[r * LD + d] = s < Sq ? __fmul_rn(qp[s * qs.s + d], scale) : 0.f;
   }
-  const int2 kt_range = key_tiles(q0, Sq, Sk, causal, window);
+  const int2 kt_range = key_tiles(q0, BQ, Sq, Sk, causal, window);
 
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -212,31 +238,248 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, float32 accumulation)
+// bfloat16: wgmma, TMA ring, warp specialisation
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);   // two bf16, 4-byte aligned
+namespace wg {
+
+constexpr int BQ = 128;            // query rows per block (two consumers)
+constexpr int STAGES = 3;          // K/V ring depth
+constexpr int THREADS = 384;       // producer + two consumer warpgroups
+constexpr int BOX = 16;            // columns per TMA box: 32 bytes, the swizzle
+constexpr int ROW_BYTES = 2 * BOX; // one box row
+
+// Shared memory, in bytes from a 1024-aligned base.  Each tile is stored as
+// hd / 16 boxes of [rows][16] bf16, box after box, each box in the 32-byte
+// swizzle (the 16-byte halves of rows 4-7 of every 8 swapped).
+template <int HD>
+struct Smem {
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + Q_BYTES;
+  static constexpr int V = K + STAGES * KV_BYTES;
+  static constexpr int BAR = V + STAGES * KV_BYTES;  // full, empty, q
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Box (c0 = column, c[1..3] = the outer coordinates in the map's order).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The outer coordinates (s, h, b) in the order of the map's dimensions 1-3:
+// `perm` holds the source index of dimension 1 + i in bits 2i, 2i + 1.
+struct Coords {
+  int c1, c2, c3;
+};
+
+__device__ __forceinline__ Coords order(int perm, int s, int h, int b) {
+  const int v[3] = {s, h, b};
+  return {v[perm & 3], v[(perm >> 2) & 3], v[(perm >> 4) & 3]};
+}
+
+// wgmma shared-memory descriptor, 32-byte swizzle (layout type 3).  K-major
+// operands: rows of 32 bytes, 8-row groups `sbo` apart (LBO unused).
+// MN-major operands: 16-column atoms `lbo` apart, 8-row (k) groups `sbo`
+// apart.  Every start address here is 256-byte aligned (base offset 0).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x in one instruction (denormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps the compiler from touching accumulator registers across the
+// asynchronous products (they are written when wgmma_wait0 returns).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64) += A (64 x 16, smem, K-major) . B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) += A (64 x 16, registers) . B (16 x 32, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80) += A (64 x 16, registers) . B (16 x 80, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 112) += A (64 x 16, registers) . B (16 x 112, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, registers) . B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  else if constexpr (N == 112) wgmma_rs_n112(d, a, db);
+  else wgmma_rs_n128(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col); PTX fragment layouts, with
-// g = lane / 4, t = lane % 4: a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..)}, b = {(k 2t.., n g), (k 2t + 8.., n g)},
-// d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float max4(float x) {
@@ -249,186 +492,355 @@ __device__ __forceinline__ float sum4(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Four 8 x 8 b16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8, and register i of every lane holds
-// (rows 2t, 2t + 1; column g) of matrix i, the B fragment of a row-major
-// [k][n] tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+struct Maps {
+  int q, k, v, o;   // Coords permutation of each map
+};
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-               int G, int Sq, int Sk, int causal, int window, float scale,
-               Strides qs, Strides ks, Strides vs, Strides os) {
-  constexpr int KS = HD / 16;   // k-steps of Q.K^T
-  constexpr int DN = HD / 8;    // n-tiles of the output
-  constexpr int LD = HD + 8;    // padded row: conflict-free fragment reads
-  __shared__ __align__(16) bf16 Ks[BK * LD];   // [key][d]
-  __shared__ __align__(16) bf16 Vs[BK * LD];   // [key][d]
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap omap, Maps perm, int B,
+               int H, int G, int Sq, int Sk, int causal, int window,
+               float scale2) {
+  using L = Smem<HD>;
+  constexpr int NB = HD / BOX;   // boxes a row: k-steps of Q.K^T
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::Q, sK = base + L::K, sV = base + L::V;
+  const uint32_t bar_full = base + L::BAR;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_q = bar_empty + 8 * STAGES;
+
+  // Longest causal query tiles first: the block index runs over the tiles
+  // from the last, every (b, h) of a tile before the next.
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / (B * H)) * BQ;
+  const int b = bh / H, h = bh % H, kvh = h / G;
+  const int2 kr = key_tiles(q0, BQ, Sq, Sk, causal, window);
+  const int n_tiles = max(kr.y - kr.x, 0);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
-  const bf16* qp = q + b * qs.b + h * qs.h;
-  const bf16* kp = k + b * ks.b + kvh * ks.h;
-  const bf16* vp = v + b * vs.b + kvh * vs.h;
-  bf16* op = o + b * os.b + h * os.h;
-  const int w0 = q0 + warp * 16;            // the warp's first query row
-  const int row[2] = {w0 + g, w0 + g + 8};
-  // Scores in log2 units: exp(x * scale) = exp2(x * scale * log2(e)).
-  const float scale2 = scale * 1.4426950408889634f;
-
-  uint32_t qa[KS][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int s = 0; s < KS; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row[i & 1], d = 16 * s + 2 * t + ((i & 2) ? 8 : 0);
-      qa[s][i] = r < Sq ? ld_pair(qp + r * qs.s + d) : 0u;
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);   // every consumer thread
     }
-  const int2 kt_range = key_tiles(q0, Sq, Sk, causal, window);
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[DN][4];
+  if (tid < 128) {
+    // Producer warpgroup: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      const Coords cq = order(perm.q, q0, h, b);
+      mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < DN; ++n)
+      for (int j = 0; j < NB; ++j)
+        tma_load(sQ + j * BQ * ROW_BYTES, &qmap, bar_q, j * BOX, cq.c1, cq.c2,
+                 cq.c3);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(bar_empty + 8 * s, (it / STAGES - 1) & 1);
+        const int k0 = (kr.x + it) * BK;
+        const Coords ck = order(perm.k, k0, kvh, b);
+        const Coords cv = order(perm.v, k0, kvh, b);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::KV_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = kt_range.x; kt < kt_range.y; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    for (int i = tid; i < BK * HD / 2; i += THREADS) {
-      const int r = i / (HD / 2), d = 2 * (i % (HD / 2)), s = k0 + r;
-      const bool in = s < Sk;
-      *reinterpret_cast<uint32_t*>(&Ks[r * LD + d]) =
-          in ? ld_pair(kp + s * ks.s + d) : 0u;
-      *reinterpret_cast<uint32_t*>(&Vs[r * LD + d]) =
-          in ? ld_pair(vp + s * vs.s + d) : 0u;
-    }
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows and the tile's 64 keys.
-    float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-      const bf16* krow = &Ks[(8 * j + g) * LD + 2 * t];
-#pragma unroll
-      for (int s = 0; s < KS; ++s)
-        mma(sc[j], qa[s], ld_pair(krow + 16 * s), ld_pair(krow + 16 * s + 8));
-    }
-
-    // Scale, mask (only where the tile meets an edge of the band or of
-    // the sequence), online softmax over the rows g and g + 8.
-    const bool full = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= w0) &&
-                      (window <= 0 || k0 > w0 + 15 - window);
-    uint32_t ok = 0xffffffffu;
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[j][e] *= scale2;
-        if (!full && !attends(row[e >> 1], k0 + 8 * j + 2 * t + (e & 1), Sk,
-                              causal, window))
-          ok &= ~(1u << (4 * j + e));
-        else
-          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t off = s * L::KV_BYTES + j * BK * ROW_BYTES;
+          tma_load(sK + off, &kmap, full, j * BOX, ck.c1, ck.c2, ck.c3);
+          tma_load(sV + off, &vmap, full, j * BOX, cv.c1, cv.c2, cv.c3);
+        }
       }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], max4(mx[r]));
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
     }
-    // P as A fragments of the P.V product: k-step kk covers keys
-    // 16 kk .. 16 kk + 15, the score n-tiles 2 kk and 2 kk + 1.
-    uint32_t p_hi[4][4], p_lo[4][4];
+  } else {
+    // Consumer warpgroups: c owns query rows q0 + 64 c .. q0 + 64 c + 63;
+    // warp w of it rows 16 w .. 16 w + 15 of those, as wgmma lays them out.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = tid / 128 - 1, t128 = tid & 127;
+    const int warp = t128 >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + 64 * c;
+    const int w0 = r0 + 16 * warp;
+    const int row[2] = {w0 + g, w0 + g + 8};
+    const bool live = r0 < Sq;
+    const uint32_t sQc = sQ + 64 * c * ROW_BYTES;
+
+    float o[HD / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+    constexpr int SN = BK / 2;     // score accumulators a thread
+    static_assert(SN == 32, "S = Q K^T is one wgmma m64n64 per k-step");
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const int k0 = (kr.x + it) * BK;
+      mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+      // A tile masked for all of this consumer's rows is only released.
+      const bool skip = !live || (causal && k0 > r0 + 63) ||
+                        (window > 0 && k0 + BK - 1 <= r0 - window);
+      if (!skip) {
+        const uint32_t sKs = sK + s * L::KV_BYTES;
+        const uint32_t sVs = sV + s * L::KV_BYTES;
+        // S = Q K^T: 64 x BK in float32, hd / 16 k-steps of one box each.
+        float sc[SN];
+#pragma unroll
+        for (int i = 0; i < SN; ++i) sc[i] = 0.f;
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          wgmma_ss_n64(sc, desc(sQc + j * BQ * ROW_BYTES, 16, 8 * ROW_BYTES),
+                       desc(sKs + j * BK * ROW_BYTES, 16, 8 * ROW_BYTES),
+                       j > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sc);
+
+        // Mask (only where the tile meets an edge of the band or of the
+        // sequence) and online softmax over the rows g and g + 8, in log2
+        // units: p = 2^(s scale2 - m), the scale folded into one fma.
+        // sc[4 n + e] is (row[e >> 1], key k0 + 8 n + 2 t + (e & 1)); it is
+        // overwritten with p.
+        const bool full = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= w0) &&
+                          (window <= 0 || k0 > w0 + 15 - window);
+        if (!full)   // masked scores become -inf: 2^-inf = 0
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!attends(row[e >> 1], k0 + 8 * n + 2 * t + (e & 1), Sk,
+                           causal, window))
+                sc[4 * n + e] = __int_as_float(0xff800000);   // -inf
+        float mx[2] = {NEG, NEG};
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
+        float corr[2], sum[2] = {0.f, 0.f}, neg_m[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float raw = max4(mx[r]);
+          const float m_new =
+              raw == NEG ? m[r] : fmaxf(m[r], __fmul_rn(raw, scale2));
+          corr[r] = ex2(m[r] - m_new);
+          m[r] = m_new;
+          neg_m[r] = -m_new;
+        }
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(sc[4 * n + e], scale2, neg_m[e >> 1]));
+            sc[4 * n + e] = p;
+            sum[e >> 1] += p;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum4(sum[r]);
+        if (corr[0] != 1.f || corr[1] != 1.f)   // the row maxima moved
+#pragma unroll
+          for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[4 * n + e] *= corr[e >> 1];
+
+        // P as the A operand of P V, hi + lo: k-step kk covers keys 16 kk ..
+        // 16 kk + 15, the score n-tiles 2 kk and 2 kk + 1 (the
+        // accumulator's layout is the register A operand's).  V is an
+        // MN-major B operand: 16-column atoms BK rows (one box) apart, 8-key
+        // groups 256 bytes apart.
+        uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p0 = sc[4 * n + 2 * r], p1 = sc[4 * n + 2 * r + 1];
+            const uint32_t hi = pack(p0, p1);
+            const __nv_bfloat162 h2 =
+                *reinterpret_cast<const __nv_bfloat162*>(&hi);
+            p_hi[n >> 1][2 * (n & 1) + r] = hi;
+            p_lo[n >> 1][2 * (n & 1) + r] =
+                pack(p0 - __low2float(h2), p1 - __high2float(h2));
+          }
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t dv = desc(sVs + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
+                                   8 * ROW_BYTES);
+          wgmma_rs<HD>(o, p_hi[kk], dv);
+          wgmma_rs<HD>(o, p_lo[kk], dv);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(o);
+      }
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+    if (live) {
+      // Normalise and write O, bf16, into this consumer's slice of the Q
+      // tile (its last reader was this warpgroup's final Q.K^T), in the
+      // boxes' swizzled layout; then one thread stores it by TMA.
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float p[2];
+        const float inv = __frcp_rn(fmaxf(l[r], 1e-30f));
+        const int lr = 16 * warp + g + 8 * r;   // row in the slice
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * r + c;
-          p[c] = (ok >> (4 * j + e)) & 1u ? exp2f(sc[j][e] - m[r]) : 0.f;
-          sum[r] += p[c];
+        for (int n = 0; n < HD / 8; ++n) {
+          const int col = 8 * (n & 1) + 2 * t;   // in box n / 2
+          const uint32_t addr = sQc + (n >> 1) * BQ * ROW_BYTES +
+                                lr * ROW_BYTES +
+                                (((col >> 3) ^ ((lr >> 2) & 1)) << 4) +
+                                (col & 7) * 2;
+          const uint32_t v = pack(__fmul_rn(o[4 * n + 2 * r], inv),
+                                  __fmul_rn(o[4 * n + 2 * r + 1], inv));
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+                       : "memory");
         }
-        const uint32_t hi = pack(p[0], p[1]);
-        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(
-            &hi);
-        p_hi[j >> 1][2 * (j & 1) + r] = hi;
-        p_lo[j >> 1][2 * (j & 1) + r] =
-            pack(p[0] - __low2float(h2), p[1] - __high2float(h2));
       }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      if (t128 == 0) {
+        const Coords co = order(perm.o, r0, h, b);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum4(sum[r]);
-#pragma unroll
-    for (int n = 0; n < DN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-
-    // O += P V, with P = hi + lo; V's B fragments by ldmatrix.trans, two
-    // output n-tiles (16 columns of d) per load.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < DN; n += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &Vs[(16 * kk + ((lane >> 3) & 1) * 8 +
-                                   (lane & 7)) * LD +
-                                  8 * n + (lane >> 4) * 8]);
-        mma(acc[n], p_hi[kk], vb[0], vb[1]);
-        mma(acc[n], p_lo[kk], vb[0], vb[1]);
-        mma(acc[n + 1], p_hi[kk], vb[2], vb[3]);
-        mma(acc[n + 1], p_lo[kk], vb[2], vb[3]);
+        for (int j = 0; j < NB; ++j)
+          tma_store(&omap, sQc + j * BQ * ROW_BYTES, j * BOX, co.c1, co.c2,
+                    co.c3);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < DN; ++n)
-      *reinterpret_cast<uint32_t*>(op + row[r] * os.s + 8 * n + 2 * t) =
-          pack(__fdiv_rn(acc[n][2 * r], denom),
-               __fdiv_rn(acc[n][2 * r + 1], denom));
+    }
   }
 }
+
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-d bf16 tensor map over the (B, H, S, hd) view with element strides
+// `st` and a unit hd stride, boxes of 16 columns x `rows` rows, 32-byte
+// swizzle, zero fill out of bounds.  The outer dimensions go in order of
+// their strides (*perm says which is which, for wg::order).  Returns 0, or
+// -2 if the map cannot be made.
+int make_map(CUtensorMap* map, int* perm, const void* ptr, int B, int H,
+             int S, int HD, Strides st, int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return -2;
+  // (s, h, b) with their extents and byte strides, sorted by stride.
+  int idx[3] = {0, 1, 2};
+  const long long ext[3] = {S, H, B};
+  long long str[3] = {st.s * 2, st.h * 2, st.b * 2};
+  // A dimension of extent 1 is never stepped, and its stride may be
+  // anything: place it past the others' span.
+  long long span = 2LL * HD;
+  for (int i = 0; i < 3; ++i)
+    if (ext[i] > 1 && str[i] * ext[i] > span) span = str[i] * ext[i];
+  for (int i = 0; i < 3; ++i)
+    if (ext[i] == 1) str[i] = span;
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (str[idx[j]] < str[idx[i]]) {
+        const int tmp = idx[i];
+        idx[i] = idx[j];
+        idx[j] = tmp;
+      }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(wg::BOX), 1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  *perm = 0;
+  for (int i = 0; i < 3; ++i) {
+    dims[1 + i] = static_cast<cuuint64_t>(ext[idx[i]]);
+    strides[i] = static_cast<cuuint64_t>(str[idx[i]]);
+    if (idx[i] == 0) box[1 + i] = static_cast<cuuint32_t>(rows);
+    *perm |= idx[i] << (2 * i);
+  }
+  const CUresult res = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -2;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int KV, int Sq, int Sk, int causal, int window,
+                Strides qs, Strides ks, Strides vs, Strides os,
+                cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  wg::Maps perm;
+  if (make_map(&qm, &perm.q, q, B, H, Sq, HD, qs, wg::BQ) ||
+      make_map(&km, &perm.k, k, B, KV, Sk, HD, ks, BK) ||
+      make_map(&vm, &perm.v, v, B, KV, Sk, HD, vs, BK) ||
+      make_map(&om, &perm.o, o, B, H, Sq, HD, os, wg::BQ / 2))
+    return -2;
+  constexpr int bytes = wg::Smem<HD>::BYTES + 1024;   // + alignment slack
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wg::flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int n_qt = (Sq + wg::BQ - 1) / wg::BQ;
+  const float scale2 = 1.0f / sqrtf((float)HD) * 1.4426950408889634f;
+  wg::flash_fwd_bf16<HD><<<n_qt * B * H, wg::THREADS, bytes, stream>>>(
+      qm, km, vm, om, perm, B, H, H / KV, Sq, Sk, causal, window, scale2);
+  return (int)cudaGetLastError();
+}
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int B, int H, int KV, int Sq, int Sk, int causal, int window,
            Strides qs, Strides ks, Strides vs, Strides os,
            cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_bf16<HD>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, qs,
+                           ks, vs, os, stream);
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   const float scale = 1.0f / sqrtf((float)HD);
-  if (dtype == 1) {
-    flash_fwd_bf16<HD><<<grid, THREADS, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / KV, Sq,
-        Sk, causal, window, scale, qs, ks, vs, os);
-    return (int)cudaGetLastError();
-  }
   constexpr int bytes = f32_smem_floats<HD>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -449,9 +861,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 
 // q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), each given by
 // its (b, h, s) element strides with a unit head-dim stride (and, in
-// bfloat16, even strides on 4-byte-aligned data).  dtype 0 is float32, 1
-// bfloat16.  Returns 0, a CUDA error code, or -1 for an unsupported hd or
-// dtype.
+// bfloat16, 16-byte aligned data and strides, as TMA requires).  dtype 0 is
+// float32, 1 bfloat16.  Returns 0, a CUDA error code, -1 for an unsupported
+// hd or dtype, or -2 if a bf16 tensor map could not be made.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int KV, int Sq, int Sk, int hd, int causal, int window,

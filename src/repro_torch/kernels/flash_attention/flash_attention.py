@@ -5,7 +5,10 @@ launches on the current stream and raises if the launch fails; it does
 not wait for the device.  It takes strided views (only the head dim must
 be contiguous) and an optional ``out``, so the model-layout adapter in
 ``ops.py`` passes (B, S, H, hd) tensors as transposed views without
-copying them.  ``LAUNCHES`` counts its launches.
+copying them.  In bfloat16 the kernel reads and writes them by TMA, whose
+tensor maps need 16-byte aligned bases and strides: a view that starts
+elsewhere or has a stride that is not a multiple of 8 elements raises.
+``LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -25,13 +28,21 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
+_FN = None
+
+
 def _fn():
+    """The kernel's C entry point, loaded (and built) once."""
+    global _FN
+    if _FN is not None:
+        return _FN
     fn = _build.load("flash_attention").flash_attention_fwd
     # Pointers and the stream as c_void_p, strides as 64-bit ints: left
     # undeclared, ctypes would pass them as 32-bit ints and cut them.
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    _FN = fn
     return fn
 
 
@@ -76,10 +87,12 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, out=None):
             raise ValueError(f"{caller}: {name} must be contiguous along "
                              f"the head dim")
         if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 4 or any(x % 2 for x in t.stride()[:3])):
-            raise ValueError(f"{caller}: bfloat16 {name} must start on 4 "
-                             f"bytes and have even strides (the kernel "
-                             f"reads pairs)")
+                t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1)):
+            raise ValueError(f"{caller}: bfloat16 {name} must start on 16 "
+                             f"bytes and have strides of multiples of 8 "
+                             f"elements (TMA's rule)")
     if B * H == 0 or Sq == 0:
         return out
     if Sk == 0:

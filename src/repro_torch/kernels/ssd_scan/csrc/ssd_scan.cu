@@ -11,34 +11,13 @@
 // with acum the running sum of a = dt A inside the chunk, float32
 // accumulation, y in the input's dtype (float32 or bfloat16) and, on
 // request, the (P, N) float32 state after the last chunk (the TPU kernel's
-// VMEM state scratch).  Heads share one (B, C) group (n_groups = 1).
-//
-// Design.  One block of 256 threads (16 x 16) owns one (batch, head) cell;
-// the grid covers every cell at once.  A loop inside the block over the
-// chunks, in order, takes the place of the TPU grid's sequential chunk
-// axis, and the (P, N) state stays in shared memory across it.  Per chunk:
-//
-//   * a and dt of the chunk's rows go to shared memory, and a block scan
-//     (warp shuffles, then the warps' totals) makes acum;
-//   * a (Q, Q) float32 score block does not fit (256 KB at Q = 256), so the
-//     intra-chunk form is tiled: 64-row query tiles against 64-row key
-//     tiles, s <= l only (tiles above the diagonal are skipped; on the
-//     diagonal the mask is applied before the exp, whose argument is large
-//     and positive above it).  The score tile C_i B_j^T goes through shared
-//     memory, is scaled by the decay and dt, and is multiplied into x_j;
-//     the query tile's y stays in registers (thread (ty, tx) owns rows
-//     ty + 16 i and columns tx + 16 p);
-//   * the inter-chunk term reads the state before this chunk's update; the
-//     last query tile then scales the state and adds x_j^T (w (.) B_j) for
-//     each key tile it loads anyway (thread t owns state column t % N).
-//
-// Rows past the sequence end are loaded as zeros with a = dt = 0 (decay 1,
-// no input), so any S works and the final state is the state after the
-// last row; rows past S are not written.  Q is any value from 1 to 1024
-// (a chunk of Q < 64 is one partly padded tile).  x, B and C are read
-// through their (batch, position[, head]) strides with a unit stride along
-// P or N, so the model's slices of one xBC tensor come in without copies.
-// P is a template parameter (16, 32, 64, 128); N is 8, 16, 32, 64 or 128.
+// VMEM state scratch).  Heads share one (B, C) group (n_groups = 1).  Rows
+// past the sequence end, and the rows that pad a chunk to a multiple of 64,
+// count as zeros with a = dt = 0 (decay 1, no input), so any S and any Q
+// from 1 to 1024 work and the final state is the state after the last row;
+// rows past S are not written.  x, B and C are read through their (batch,
+// position[, head]) strides with a unit stride along P or N, so the model's
+// slices of one xBC tensor come in without copies.
 //
 // Bound at the serving path's shapes (B = 1, Q = 256, S = 2048): per chunk
 // the causal half of C B^T, Q (Q + 1) N operations, once for all heads
@@ -48,14 +27,49 @@
 // TF32 peak, against 19.4 MB (x, B, C, a, dt and y once, state out) or
 // 5.79 us at 3.35 TB/s: operations bound it.  zamba2-7b (H = 112, P = 64,
 // N = 64) does 7.56 GFLOP, 15.3 us, against 62.9 MB or 18.8 us: bytes
-// bound it.  This kernel runs the products on the float32 CUDA cores
-// (67 TFLOP/s at most), recomputes C B^T for every head, and keeps 32 or
-// 112 blocks busy on 132 SMs; tensor cores (wgmma) with TMA loads, a
-// chunk-parallel split with a short state-passing pass, and one C B^T per
-// chunk are the later work.
+// bound it.
 //
-// Every product is an explicit fmaf or __fmul_rn, so the result does not
-// depend on the shared -fmad=false build flag.
+// bfloat16 (the serving path): Mamba-2's own chunk-parallel split
+// (arXiv:2405.21060 sections 6-7), three kernels on the stream per call,
+// what the four faults of the earlier one-block-per-(b, h) design called
+// for:
+//
+//   * 32 (or 112) blocks walking the chunks in order -> chunk-parallel.
+//     (1) chunk states, grid (chunk, head, batch): the chunk's cumulative
+//     decay (a block scan), written to a small scratch, and its local state
+//     (w (.) x)^T B into scratch of shape (Bt, nc, H, P, N);
+//     (2) state passing, grid (P N tiles, head, batch): the only sequential
+//     part, an element-wise walk over the nc chunks that overwrites each
+//     local state with the state carried into its chunk, and writes the
+//     final state on request; (3) chunk scan, grid (64-row query tile x
+//     chunk x group of g heads, batch), longest query tiles first: 256
+//     blocks at mamba2-370m's S = 2048, 896 at zamba2-7b's.
+//   * float32 CUDA cores -> tensor cores.  Every product is mma.sync
+//     m16n8k16 in bf16 with float32 sums.  Operands that are computed in
+//     float32 (w (.) x, the decay-scaled scores and the carried state) go in
+//     as hi + lo bf16 pairs, two products each, so they keep about 16 bits
+//     as the flash kernel's P does; x, B and C go in as they are.  mma.sync
+//     and not wgmma: those operands are made in registers, right after the
+//     decay scaling, in the accumulator layout that mma.sync's A fragment
+//     shares, and the per-tile products are 16-64 columns wide; wgmma with
+//     its warpgroup tiles is left for a later PR.
+//   * C B^T once per head -> once per (chunk, query tile, group of g heads):
+//     the 64 x 64 tile G = C_i B_j^T is computed once and scaled by each of
+//     the g heads' decays (g = 4 at P <= 64; n_groups = 1).  Each half of
+//     the block takes half of the heads, so no score is computed twice.
+//   * synchronous loads -> cp.async, double-buffered: each key tile's x (for
+//     the g heads), B, decays and dt come in while the previous tile is
+//     multiplied.  The launcher requires 16-byte aligned bases and strides;
+//     N = 8 is zero-padded to the 16 columns of a k-step in shared memory.
+//
+// float32: CUDA cores, one block of 256 threads (16 x 16) per (batch, head)
+// walking the chunks in order with the (P, N) state in shared memory; per
+// chunk a block scan of a, 64 x 64 (query, key) tiles below the diagonal
+// (masked before the exp on it), the state update folded into the last
+// query tile.  Thread (ty, tx) owns rows ty + 16 i and columns tx + 16 p.
+//
+// Every product is an explicit fmaf, __fmul_rn or mma, so the result does
+// not depend on the shared -fmad=false build flag.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -321,29 +335,701 @@ int launch(const Args& g, int n_cells, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: chunk-parallel on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int PAD = 8;         // bf16 row padding: conflict-free fragments
+constexpr int THREADS1 = 256;  // chunk states: 8 warps
+
+struct Args {
+  const bf16* x;
+  const bf16* b;
+  const bf16* c;
+  const float* a;     // (Bt, S, H), contiguous
+  const float* dt;    // (Bt, S, H), contiguous
+  bf16* y;            // (Bt, S, H, P), contiguous
+  float* state;       // (Bt, H, P, N), contiguous, or null
+  float* states;      // scratch (Bt, nc, H, P, N)
+  float* acum;        // scratch (Bt, nc, H, q_pad)
+  long long x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss;
+  int H, S, P, N, Q, nc, q_pad;
+};
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (hi, lo) bf16 pairs of two float32 values: hi + lo keeps ~16 bits.
+__device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
+                                      uint32_t& lo) {
+  hi = pack(v0, v1);
+  const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  lo = pack(v0 - __low2float(h2), v1 - __high2float(h2));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col); PTX fragment layouts, with
+// g = lane / 4, t = lane % 4: a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..)}, b = {(k 2t.., n g), (k 2t + 8.., n g)},
+// d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 b16 matrices, transposed: lane l gives the address of row
+// l % 8 of matrix l / 8; register i of lane (g, t) holds (rows 2t, 2t + 1;
+// column g) of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid.
+__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + T) of a (.., S, cols) bf16 view at `base` (row stride
+// `ss`) into shared [T][ld]; rows at or past `rows` (chunk-relative, with
+// the chunk starting at `c0`) as zeros.
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* base,
+                                          long long ss, int c0, int r0,
+                                          int rows, int cols, int tid,
+                                          int nthreads) {
+  const int per_row = cols / 8;
+  for (int e = tid; e < T * per_row; e += nthreads) {
+    const int r = e / per_row, ch = e - r * per_row;
+    const bool valid = r0 + r < rows;
+    const bf16* src =
+        valid ? base + (long long)(c0 + r0 + r) * ss + 8 * ch : base;
+    cp16(dst + r * ld + 8 * ch, src, valid);
+  }
+}
+
+// Two 8 x 8 b16 matrices, transposed: lanes 0-15 give the addresses (row
+// l % 8 of matrix l / 8); the B fragment of one n-tile.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// 4 bytes global -> shared, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 2^x in one instruction (denormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// -- pass 1: chunk states ----------------------------------------------------
+//
+// Block (c, h, b).  acum = the inclusive scan of a over the chunk (q_pad
+// rows, the padding a = 0), to scratch; then, over 64-row key tiles,
+// local[p][n] = sum_s (w_s x[s][p]) B[s][n], w_s = exp(acum_last - acum_s)
+// dt_s.  (w x)^T is the A operand: x^T by ldmatrix.trans of the [s][p]
+// tile, scaled by w in registers and split into hi + lo; B is the B operand
+// by ldmatrix.trans of the [s][n] tile.  Warp w owns the m-tile w % (P / 16)
+// and the NTW n-tiles from NTW (w / (P / 16)).
+template <int NTW>
+__global__ void __launch_bounds__(THREADS1) chunk_state(Args g) {
+  extern __shared__ float smem[];
+  __shared__ float warp_sum[THREADS1 / 32];
+  const int P = g.P, N = g.N, q_pad = g.q_pad;
+  const int LX = P + PAD, LB = N + PAD;
+  float* Ac = smem;                                    // [q_pad]
+  float* W = Ac + q_pad;                               // [q_pad]
+  bf16* Xs = reinterpret_cast<bf16*>(W + q_pad);       // [2][T][LX]
+  bf16* Bs = Xs + 2 * T * LX;                          // [2][T][LB]
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = c * g.Q, rows = min(g.Q, g.S - c0);
+  const long long ao = (long long)b * g.S * g.H + h;
+  const bf16* xb = g.x + b * g.x_sb + h * g.x_sh;
+  const bf16* bb = g.b + b * g.b_sb;
+  const int n_st = (rows + T - 1) / T;
+
+  // The first key tile's loads go out before the scan.
+  load_tile(Xs, LX, xb, g.x_ss, c0, 0, rows, P, tid, THREADS1);
+  load_tile(Bs, LB, bb, g.b_ss, c0, 0, rows, N, tid, THREADS1);
+  cp_commit();
+
+  for (int l = tid; l < q_pad; l += THREADS1) {
+    const bool in = l < rows;
+    Ac[l] = in ? g.a[ao + (long long)(c0 + l) * g.H] : 0.f;
+    W[l] = in ? g.dt[ao + (long long)(c0 + l) * g.H] : 0.f;
+  }
+  __syncthreads();
+  // Inclusive scan of a over the chunk, 256 rows at a time.
+  float carry = 0.f;
+  for (int base = 0; base < q_pad; base += THREADS1) {
+    const int l = base + tid;
+    float v = l < q_pad ? Ac[l] : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += t;
+    }
+    if (lane == 31) warp_sum[warp] = v;
+    __syncthreads();
+    float pre = carry, tot = carry;
+#pragma unroll
+    for (int w = 0; w < THREADS1 / 32; ++w) {
+      if (w < warp) pre += warp_sum[w];
+      tot += warp_sum[w];
+    }
+    if (l < q_pad) Ac[l] = v + pre;
+    carry = tot;
+    __syncthreads();
+  }
+  const float a_last = Ac[q_pad - 1];
+  float* acum_out = g.acum + (((long long)b * g.nc + c) * g.H + h) * q_pad;
+  for (int l = tid; l < q_pad; l += THREADS1) {
+    acum_out[l] = Ac[l];
+    W[l] = __fmul_rn(expf(a_last - Ac[l]), W[l]);
+  }
+
+  const int MT = P / 16, NT = N / 8;
+  const int mt = warp % MT, nt0 = (warp / MT) * NTW;
+  const int t = lane & 3;
+  float acc[NTW][4];
+#pragma unroll
+  for (int k = 0; k < NTW; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[k][e] = 0.f;
+
+  for (int st = 0; st < n_st; ++st) {
+    const int cur = st & 1;
+    if (st + 1 < n_st) {
+      load_tile(Xs + (cur ^ 1) * T * LX, LX, xb, g.x_ss, c0, (st + 1) * T,
+                rows, P, tid, THREADS1);
+      load_tile(Bs + (cur ^ 1) * T * LB, LB, bb, g.b_ss, c0, (st + 1) * T,
+                rows, N, tid, THREADS1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();   // the tile is in; W is written
+    if (nt0 < NT) {
+      const bf16* Xc = Xs + cur * T * LX;
+      const bf16* Bc = Bs + cur * T * LB;
+      const float* w = W + st * T;
+#pragma unroll
+      for (int ks = 0; ks < T / 16; ++ks) {
+        // x^T fragment: registers 0, 1 hold keys 16 ks + 2t, + 1; 2, 3
+        // keys 16 ks + 2t + 8, + 9.
+        uint32_t xa[4], ahi[4], alo[4];
+        const int mi = lane >> 3;
+        ldmatrix_x4_trans(xa, Xc + (16 * ks + (lane & 7) + 8 * (mi >> 1)) *
+                                       LX + 16 * mt + 8 * (mi & 1));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int s = 16 * ks + 2 * t + ((i & 2) ? 8 : 0);
+          const __nv_bfloat162 v =
+              *reinterpret_cast<const __nv_bfloat162*>(&xa[i]);
+          split(__fmul_rn(w[s], __low2float(v)),
+                __fmul_rn(w[s + 1], __high2float(v)), ahi[i], alo[i]);
+        }
+        const int row = 16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1);
+        if constexpr (NTW == 1) {
+          uint32_t bf[2];
+          ldmatrix_x2_trans(bf, Bc + row * LB + 8 * nt0);
+          mma(acc[0], ahi, bf[0], bf[1]);
+          mma(acc[0], alo, bf[0], bf[1]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < NTW; k += 2) {
+            if (nt0 + k < NT) {
+              uint32_t bf[4];
+              ldmatrix_x4_trans(bf, Bc + row * LB + 8 * (nt0 + k) +
+                                        8 * (lane >> 4));
+              mma(acc[k], ahi, bf[0], bf[1]);
+              mma(acc[k], alo, bf[0], bf[1]);
+              mma(acc[k + 1], ahi, bf[2], bf[3]);
+              mma(acc[k + 1], alo, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // this stage is free again
+  }
+
+  float* out = g.states + (((long long)b * g.nc + c) * g.H + h) * P * N;
+  const int gq = lane >> 2;
+#pragma unroll
+  for (int k = 0; k < NTW; ++k) {
+    const int nt = nt0 + k;
+    if (nt < NT)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = 16 * mt + gq + 8 * r, n = 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(out + p * N + n) =
+            make_float2(acc[k][2 * r], acc[k][2 * r + 1]);
+      }
+  }
+}
+
+// -- pass 2: state passing -----------------------------------------------------
+//
+// Block (tile of P N / 4 float4s, h, b); thread e walks the chunks in order:
+// s_in[c] = exp(acum_last[c - 1]) s_in[c - 1] + local[c - 1], written over
+// local[c]; the state after the last chunk goes to `state` if given.  The
+// next chunk's loads are issued before this chunk's update.
+constexpr int THREADS2 = 256;
+
+__global__ void __launch_bounds__(THREADS2) state_pass(Args g) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int PN4 = g.P * g.N / 4;
+  const int e = blockIdx.x * THREADS2 + threadIdx.x;
+  if (e >= PN4) return;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long cell0 = (long long)b * g.nc * g.H + h;
+  float4 loc;
+  float a_last;
+  if (g.nc > 0) {
+    loc = reinterpret_cast<const float4*>(g.states + cell0 * g.P * g.N)[e];
+    a_last = g.acum[cell0 * g.q_pad + g.q_pad - 1];
+  }
+  for (int c = 0; c < g.nc; ++c) {
+    const long long cell = cell0 + (long long)c * g.H;
+    const float4 cur = loc;
+    const float d = expf(a_last);
+    if (c + 1 < g.nc) {
+      loc = reinterpret_cast<const float4*>(
+          g.states + (cell + g.H) * g.P * g.N)[e];
+      a_last = g.acum[(cell + g.H) * g.q_pad + g.q_pad - 1];
+    }
+    reinterpret_cast<float4*>(g.states + cell * g.P * g.N)[e] = s;
+    s = make_float4(fmaf(d, s.x, cur.x), fmaf(d, s.y, cur.y),
+                    fmaf(d, s.z, cur.z), fmaf(d, s.w, cur.w));
+  }
+  if (g.state != nullptr)
+    reinterpret_cast<float4*>(g.state +
+                              ((long long)b * g.H + h) * g.P * g.N)[e] = s;
+}
+
+// -- pass 3: chunk scan --------------------------------------------------------
+//
+// Block (query tile i x chunk c x head group, b): y for the 64 query rows
+// l0 = 64 i .. of chunk c and the GH heads h0 .. h0 + GH - 1.
+//   y = exp(acum_l) (C s_in^T)                      (c > 0)
+//     + sum_{j <= i} ((C_i B_j^T) o decay o dt_s) x_j
+// with G = C_i B_j^T computed once per key tile for all GH heads.  Warp w
+// owns query rows 16 (w % 4) .. + 15; the two halves of the block (w / 4)
+// take half of the heads each (GH >= 2), or half of y's P columns (GH = 1),
+// so that no score is computed twice.
+template <int P, int GH>
+struct Scan {
+  static constexpr bool SPLIT_HEADS = GH >= 2;
+  static constexpr int HALVES = (SPLIT_HEADS || P >= 32) ? 2 : 1;
+  static constexpr int HPW = SPLIT_HEADS ? GH / 2 : GH;   // heads a warp
+  static constexpr int PW = SPLIT_HEADS ? P : P / HALVES; // y columns a warp
+  static constexpr int NPT = PW / 8;                      // their n-tiles
+  static constexpr int THREADS = 128 * HALVES;
+};
+
+template <int P, int GH>
+__global__ void __launch_bounds__(Scan<P, GH>::THREADS)
+chunk_scan(Args g, int n_qt, int n_groups) {
+  using K = Scan<P, GH>;
+  extern __shared__ float smem[];
+  const int N = g.N, NP = max(N, 16);
+  const int LC = NP + PAD, LX = P + PAD;
+  bf16* Cs = reinterpret_cast<bf16*>(smem);   // [T][LC]
+  bf16* Bs = Cs + T * LC;                     // [2][T][LC]
+  bf16* Xs = Bs + 2 * T * LC;                 // [2][GH][T][LX]
+  float* AcQ = reinterpret_cast<float*>(Xs + 2 * GH * T * LX);   // [GH][T]
+  float* AcK = AcQ + GH * T;                  // [2][GH][T]
+  float* DtK = AcK + 2 * GH * T;              // [2][GH][T]
+
+  const int per_tile = g.nc * n_groups;
+  const int i = n_qt - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int rem = blockIdx.x % per_tile;
+  const int c = rem / n_groups, h0 = (rem % n_groups) * GH;
+  const int b = blockIdx.y;
+  const int c0 = c * g.Q, rows = min(g.Q, g.S - c0), l0 = i * T;
+  if (l0 >= rows) return;   // the query tile is all padding
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp & 3, half = warp >> 2;
+  const int hw0 = K::SPLIT_HEADS ? half * K::HPW : 0;   // the warp's heads
+  const int pw0 = K::SPLIT_HEADS ? 0 : half * K::PW;    // and columns
+  const int gq = lane >> 2, t = lane & 3;
+  const bf16* bb = g.b + b * g.b_sb;
+  const bf16* cb = g.c + b * g.c_sb;
+  const bf16* xb = g.x + b * g.x_sb + h0 * g.x_sh;
+  const float* acum = g.acum + ((long long)b * g.nc + c) * g.H * g.q_pad;
+
+  if (N < 16)   // zero the k-step's padding columns, never loaded
+    for (int e = tid; e < 3 * T; e += K::THREADS)
+      *reinterpret_cast<uint4*>(Cs + e * LC + 8) = make_uint4(0, 0, 0, 0);
+
+  // Key tile j into `stage`: B and the GH heads' x by 16-byte copies, their
+  // cumulative decays (scratch rows of 64 floats) and dt (4 bytes each,
+  // zero past the chunk's rows).
+  const auto load_keys = [&](int j, int stage) {
+    load_tile(Bs + stage * T * LC, LC, bb, g.b_ss, c0, j * T, rows, N, tid,
+              K::THREADS);
+    for (int hh = 0; hh < GH; ++hh)
+      load_tile(Xs + (stage * GH + hh) * T * LX, LX, xb + hh * g.x_sh,
+                g.x_ss, c0, j * T, rows, P, tid, K::THREADS);
+    for (int e = tid; e < GH * T / 4; e += K::THREADS) {
+      const int hh = e / (T / 4), r = 4 * (e - hh * (T / 4));
+      const uint32_t d = static_cast<uint32_t>(
+          __cvta_generic_to_shared(AcK + stage * GH * T + hh * T + r));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(acum + (h0 + hh) * g.q_pad + j * T + r)
+                   : "memory");
+    }
+    for (int e = tid; e < GH * T; e += K::THREADS) {
+      const int r = e / GH, hh = e - r * GH, s = j * T + r;
+      const bool valid = s < rows;
+      cp4(DtK + stage * GH * T + hh * T + r,
+          valid ? g.dt + ((long long)b * g.S + c0 + s) * g.H + h0 + hh : g.dt,
+          valid);
+    }
+    cp_commit();
+  };
+
+  load_tile(Cs, LC, cb, g.c_ss, c0, l0, rows, N, tid, K::THREADS);
+  for (int e = tid; e < GH * T; e += K::THREADS) {
+    const int hh = e / T;
+    AcQ[e] = acum[(h0 + hh) * g.q_pad + l0 + (e - hh * T)];
+  }
+  cp_commit();
+  load_keys(0, 0);
+  cp_wait<1>();
+  __syncthreads();
+
+  // C fragments of the warp's rows, as A operands, per k-step over N.
+  const auto c_frag = [&](int ks, uint32_t (&a)[4]) {
+    const bf16* p = Cs + (16 * rw + gq) * LC + 16 * ks + 2 * t;
+    a[0] = ld32(p);
+    a[1] = ld32(p + 8 * LC);
+    a[2] = ld32(p + 8);
+    a[3] = ld32(p + 8 * LC + 8);
+  };
+
+  float acc[K::HPW][K::NPT][4];
+#pragma unroll
+  for (int hh = 0; hh < K::HPW; ++hh)
+#pragma unroll
+    for (int n = 0; n < K::NPT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[hh][n][e] = 0.f;
+
+  if (c > 0) {
+    // The state carried into the chunk, s_in (P, N) float32 from pass 2,
+    // as the B operand s_in^T (k = n, n = p), split into hi + lo; each
+    // k-step's loads for all of the warp's heads and columns go out
+    // together.
+    const float* s_in = g.states +
+        (((long long)b * g.nc + c) * g.H + h0 + hw0) * P * N;
+    for (int ks = 0; ks < NP / 16; ++ks) {
+      uint32_t a[4];
+      c_frag(ks, a);
+      const int k = 16 * ks + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < K::HPW; ++hh)
+#pragma unroll
+        for (int n = 0; n < K::NPT; ++n) {
+          const float* sp = s_in + (hh * P + pw0 + 8 * n + gq) * N + k;
+          float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+          if (k < N) v0 = *reinterpret_cast<const float2*>(sp);
+          if (k + 8 < N) v1 = *reinterpret_cast<const float2*>(sp + 8);
+          uint32_t hi0, lo0, hi1, lo1;
+          split(v0.x, v0.y, hi0, lo0);
+          split(v1.x, v1.y, hi1, lo1);
+          mma(acc[hh][n], a, hi0, hi1);
+          mma(acc[hh][n], a, lo0, lo1);
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < K::HPW; ++hh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float d = expf(AcQ[(hw0 + hh) * T + 16 * rw + gq + 8 * r]);
+#pragma unroll
+        for (int n = 0; n < K::NPT; ++n) {
+          acc[hh][n][2 * r] = __fmul_rn(d, acc[hh][n][2 * r]);
+          acc[hh][n][2 * r + 1] = __fmul_rn(d, acc[hh][n][2 * r + 1]);
+        }
+      }
+  }
+
+  for (int j = 0; j <= i; ++j) {
+    const int cur = j & 1;
+    if (j < i) {
+      load_keys(j + 1, cur ^ 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+
+    // G = C_i B_j^T for the warp's 16 rows and the tile's 64 keys.
+    const bf16* Bc = Bs + cur * T * LC;
+    float gs[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gs[n][e] = 0.f;
+    for (int ks = 0; ks < NP / 16; ++ks) {
+      uint32_t a[4];
+      c_frag(ks, a);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const bf16* p = Bc + (8 * n + gq) * LC + 16 * ks + 2 * t;
+        mma(gs[n], a, ld32(p), ld32(p + 8));
+      }
+    }
+
+    const bool diag = j == i;
+#pragma unroll
+    for (int hh = 0; hh < K::HPW; ++hh) {
+      const int head = hw0 + hh;
+      const float* ak = AcK + (cur * GH + head) * T;
+      const float* dk = DtK + (cur * GH + head) * T;
+      // Scores (G o exp(acum_l - acum_s) o dt_s), masked before the exp on
+      // the diagonal tile, as A operands (hi + lo) of the product with x_j:
+      // k-step kk covers keys 16 kk .. 16 kk + 15, the n-tiles 2 kk, 2 kk + 1.
+      uint32_t s_hi[4][4], s_lo[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int lr = 16 * rw + gq + 8 * r;
+          const float aq = AcQ[head * T + lr];
+          float v[2];
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int s = 8 * n + 2 * t + cc;
+            v[cc] = (!diag || s <= lr)
+                        ? __fmul_rn(__fmul_rn(gs[n][2 * r + cc],
+                                              ex2(__fmul_rn(aq - ak[s],
+                                                            LOG2E))),
+                                    dk[s])
+                        : 0.f;
+          }
+          split(v[0], v[1], s_hi[n >> 1][2 * (n & 1) + r],
+                s_lo[n >> 1][2 * (n & 1) + r]);
+        }
+      // x_j of the head as the B operand (k = s, n = p), by
+      // ldmatrix.trans: two n-tiles (16 columns of y) per load.
+      const bf16* Xc = Xs + (cur * GH + head) * T * LX;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int n = 0; n < K::NPT; n += 2) {
+          uint32_t xb4[4];
+          ldmatrix_x4_trans(xb4, Xc + (16 * kk + ((lane >> 3) & 1) * 8 +
+                                       (lane & 7)) * LX +
+                                     pw0 + 8 * n + (lane >> 4) * 8);
+          mma(acc[hh][n], s_hi[kk], xb4[0], xb4[1]);
+          mma(acc[hh][n], s_lo[kk], xb4[0], xb4[1]);
+          mma(acc[hh][n + 1], s_hi[kk], xb4[2], xb4[3]);
+          mma(acc[hh][n + 1], s_lo[kk], xb4[2], xb4[3]);
+        }
+    }
+    __syncthreads();   // this stage is free for the load after next
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < K::HPW; ++hh)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int l = l0 + 16 * rw + gq + 8 * r;
+      if (l >= rows) continue;
+      bf16* yr = g.y + (((long long)b * g.S + c0 + l) * g.H + h0 + hw0 + hh)
+                 * P + pw0;
+#pragma unroll
+      for (int n = 0; n < K::NPT; ++n)
+        *reinterpret_cast<uint32_t*>(yr + 8 * n + 2 * t) =
+            pack(acc[hh][n][2 * r], acc[hh][n][2 * r + 1]);
+    }
+}
+
+// Shared bytes of each pass.
+inline int state_smem(const Args& g) {
+  return 2 * g.q_pad * 4 + 2 * T * (g.P + PAD) * 2 + 2 * T * (g.N + PAD) * 2;
+}
+
+template <int P, int GH>
+int scan_smem(const Args& g) {
+  const int LC = (g.N < 16 ? 16 : g.N) + PAD;
+  return 3 * T * LC * 2 + 2 * GH * T * (P + PAD) * 2 + 5 * GH * T * 4;
+}
+
+template <typename F>
+cudaError_t allow_smem(F* kernel, int bytes, int& configured) {
+  if (bytes <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured = bytes;
+  return err;
+}
+
+template <int NTW>
+int launch_state(const Args& g, int Bt, cudaStream_t stream) {
+  static int configured = 0;
+  const int bytes = state_smem(g);
+  cudaError_t err = allow_smem(chunk_state<NTW>, bytes, configured);
+  if (err != cudaSuccess) return (int)err;
+  chunk_state<NTW><<<dim3(g.nc, g.H, Bt), THREADS1, bytes, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+template <int P, int GH>
+int launch_scan(const Args& g, int Bt, cudaStream_t stream) {
+  static int configured = 0;
+  const int bytes = scan_smem<P, GH>(g);
+  cudaError_t err = allow_smem(chunk_scan<P, GH>, bytes, configured);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = g.q_pad / T, n_groups = g.H / GH;
+  chunk_scan<P, GH>
+      <<<dim3(n_qt * g.nc * n_groups, Bt), Scan<P, GH>::THREADS, bytes,
+         stream>>>(g, n_qt, n_groups);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_scan_p(const Args& g, int Bt, cudaStream_t stream) {
+  // Heads per block: 4 where they fit the registers (P <= 64), fewer where
+  // H is not a multiple.
+  if constexpr (P <= 64)
+    if (g.H % 4 == 0) return launch_scan<P, 4>(g, Bt, stream);
+  if (g.H % 2 == 0) return launch_scan<P, 2>(g, Bt, stream);
+  return launch_scan<P, 1>(g, Bt, stream);
+}
+
+// S = 0: no chunk; pass 2 alone writes the (zero) final state.
+int zero_state(const Args& g, int Bt, cudaStream_t stream) {
+  if (g.state == nullptr) return 0;
+  const int pn4 = g.P * g.N / 4;
+  state_pass<<<dim3((pn4 + THREADS2 - 1) / THREADS2, g.H, Bt), THREADS2, 0,
+               stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// The three passes on `stream`.
+int launch(const Args& g, int Bt, cudaStream_t stream) {
+  // Pass 1: n-tiles per warp, ceil((N / 8) / (8 / (P / 16))).
+  const int ntw = ((g.N / 8) * (g.P / 16) + 7) / 8;
+  int err;
+  switch (ntw) {
+    case 1: err = launch_state<1>(g, Bt, stream); break;
+    case 2: err = launch_state<2>(g, Bt, stream); break;
+    case 4: err = launch_state<4>(g, Bt, stream); break;
+    case 8: err = launch_state<8>(g, Bt, stream); break;
+    case 16: err = launch_state<16>(g, Bt, stream); break;
+    default: return -1;
+  }
+  if (err) return err;
+  const int pn4 = g.P * g.N / 4;
+  state_pass<<<dim3((pn4 + THREADS2 - 1) / THREADS2, g.H, Bt), THREADS2, 0,
+               stream>>>(g);
+  if ((err = (int)cudaGetLastError())) return err;
+  switch (g.P) {
+    case 16: return launch_scan_p<16>(g, Bt, stream);
+    case 32: return launch_scan_p<32>(g, Bt, stream);
+    case 64: return launch_scan_p<64>(g, Bt, stream);
+    case 128: return launch_scan_p<128>(g, Bt, stream);
+    default: return -1;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (Bt, S, H, P) with strides (x_sb, x_ss, x_sh) and unit stride along P;
 // b and c (Bt, S, N) with strides (sb, ss) and unit stride along N, all of
 // one dtype (0 float32, 1 bfloat16); a and dt (Bt, S, H) float32,
 // contiguous; y (Bt, S, H, P) contiguous in x's dtype; state (Bt, H, P, N)
-// float32 contiguous, or null for no state.  Returns 0, a CUDA error code,
-// or -1 for an unsupported dtype, P, N or chunk.
+// float32 contiguous, or null for no state.  bfloat16 also takes float32
+// scratch, contiguous: states (Bt, nc, H, P, N) and acum (Bt, nc, H, q_pad),
+// nc = ceil(S / Q) chunks padded to q_pad = 64 ceil(Q / 64) rows, and
+// 16-byte aligned x, b, c with strides of multiples of 8 elements; it
+// launches three kernels.  Returns 0, a CUDA error code, or -1 for an
+// unsupported dtype, P, N or chunk.
 extern "C" int ssd_scan_fwd(const void* x, const void* b, const void* c,
                             const void* a, const void* dt, void* y,
                             void* state, int dtype, int Bt, int S, int H,
                             int P, int N, int Q, long long x_sb,
                             long long x_ss, long long x_sh, long long b_sb,
                             long long b_ss, long long c_sb, long long c_ss,
-                            void* stream) {
+                            void* states, void* acum, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   if (N < 8 || N > MAX_N || (N & (N - 1)) != 0) return -1;
   if (Q < 1 || Q > MAX_Q) return -1;
   if (Bt * H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (P != 16 && P != 32 && P != 64 && P != 128) return -1;
+    const int q_pad = (Q + T - 1) / T * T;
+    const tc::Args g{static_cast<const tc::bf16*>(x),
+                     static_cast<const tc::bf16*>(b),
+                     static_cast<const tc::bf16*>(c),
+                     static_cast<const float*>(a),
+                     static_cast<const float*>(dt),
+                     static_cast<tc::bf16*>(y),
+                     static_cast<float*>(state),
+                     static_cast<float*>(states),
+                     static_cast<float*>(acum),
+                     x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss,
+                     H, S, P, N, Q, (S + Q - 1) / Q, q_pad};
+    return S > 0 ? tc::launch(g, Bt, st) : tc::zero_state(g, Bt, st);
+  }
   const Args g{x, b, c, static_cast<const float*>(a),
                static_cast<const float*>(dt), y, static_cast<float*>(state),
                x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, dtype, H, S, N, Q};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (P) {
     case 16: return launch<16>(g, Bt * H, st);
     case 32: return launch<32>(g, Bt * H, st);

@@ -7,8 +7,13 @@ takes the model layout and the chunk length, and chunks inside the
 kernel: a ragged last chunk is zero-padded there (dt = a = 0 past S, so
 the padding changes neither y nor the state).  x, B and C may be strided
 views (only the last dim must be contiguous), as the model's slices of
-one xBC tensor are; a and dt are made contiguous.  ``LAUNCHES`` counts
-its launches.
+one xBC tensor are; a and dt are made contiguous.  In bfloat16 the views
+must start on 16 bytes and have strides of multiples of 8 elements (the
+kernels copy 16-byte pieces), and the call runs three kernels on the
+stream (chunk states, state passing, chunk scan) over float32 scratch
+that this wrapper allocates: the chunks' states (Bt, nc, H, P, N) and
+their cumulative decays (Bt, nc, H, q_pad).  ``LAUNCHES`` counts calls,
+one per call whatever the number of kernels.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ LAUNCHES = 0
 HEAD_DIMS = (16, 32, 64, 128)
 STATE_DIMS = (8, 16, 32, 64, 128)
 MAX_CHUNK = 1024
+TILE = 64          # rows of the bf16 kernels' tiles; chunks pad to it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -30,14 +36,31 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
+_FN = None
+
+
 def _fn():
+    """The kernel's C entry point, loaded (and built) once."""
+    global _FN
+    if _FN is not None:
+        return _FN
     fn = _build.load("ssd_scan").ssd_scan_fwd
     # Pointers and the stream as c_void_p, strides as 64-bit ints: left
     # undeclared, ctypes would pass them as 32-bit ints and cut them.
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    _FN = fn
     return fn
+
+
+def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int, chunk: int):
+    """Shapes of the bf16 path's float32 scratch: the chunks' states and
+    their cumulative decays, each chunk padded to a multiple of ``TILE``
+    rows."""
+    nc = -(-S // chunk)
+    q_pad = -(-chunk // TILE) * TILE
+    return (Bt, nc, H, P, N), (Bt, nc, H, q_pad)
 
 
 def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
@@ -84,10 +107,22 @@ def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"{caller}: {name} must be contiguous along "
                              f"its last dim")
+        if name in ("x", "B", "C") and t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                    if n > 1)):
+            raise ValueError(f"{caller}: bfloat16 {name} must start on 16 "
+                             f"bytes and have strides of multiples of 8 "
+                             f"elements (the kernels copy 16-byte pieces)")
     a, dt = a.contiguous(), dt.contiguous()
     y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
     state = (torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
              if return_state else None)
+    states = acum = None
+    if x.dtype == torch.bfloat16:
+        states, acum = (torch.empty(shape, dtype=torch.float32,
+                                    device=x.device)
+                        for shape in scratch_shapes(Bt, S, H, P, N, chunk))
     if Bt * H:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _fn()(x.data_ptr(), B.data_ptr(), C.data_ptr(), a.data_ptr(),
@@ -95,7 +130,8 @@ def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
                     None if state is None else state.data_ptr(),
                     _DTYPES[x.dtype], Bt, S, H, P, N, chunk,
                     *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
-                    stream)
+                    None if states is None else states.data_ptr(),
+                    None if acum is None else acum.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"{caller}: launch failed with CUDA error "
                                f"{err}")

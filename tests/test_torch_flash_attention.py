@@ -6,7 +6,8 @@ JAX Pallas kernel run in interpret mode, on the six shapes of
 ``tests/test_kernels_flash.py`` and on ragged lengths.  Tolerances are
 those of that file: 2e-5 in float32 (sum order), 2e-2 in bfloat16 (one
 bf16 rounding of outputs of order 1).  The CUDA kernel itself runs only on
-the card, where ``chip_smoke.py`` holds it against the same plain version.
+the card, where ``chip_smoke.py`` holds it against the same plain version;
+here its launcher's checks and dispatch run with a fake launch.
 """
 import importlib
 
@@ -130,3 +131,87 @@ def test_adapter_refuses_other_devices():
     x = torch.zeros((1, 8, 2, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# the card's dispatch, without a card
+# ---------------------------------------------------------------------------
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """Replace the ctypes call (and the stream) with a recorder; the
+    launcher's checks, allocation and count run as on the card."""
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(fa_mod, "_fn", lambda: fn)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream)
+    fa_mod.reset_launches()
+    return calls
+
+
+def _serving_views(S, H, KV, hd, dtype=torch.bfloat16):
+    """q, k, v and out as the serving path hands them on: (B, S, H, hd)
+    tensors on the 'card', seen as (B, H, S, hd) transposed views."""
+    q, k, v = (torch.from_numpy(x).to(dtype).transpose(1, 2).contiguous()
+               .as_subclass(_OnCard) for x in _inputs(1, H, KV, S, hd, 0))
+    out = torch.empty((1, S, H, hd), dtype=dtype).as_subclass(_OnCard)
+    return [t.transpose(1, 2) for t in (q, k, v, out)]
+
+
+@pytest.mark.parametrize("hd,H,KV", [(80, 32, 32), (112, 32, 32)])
+def test_launcher_takes_serving_views(fake_launch, hd, H, KV):
+    """stablelm-3b's (hd 80) and zamba2-7b's shared attention (hd 112)
+    transposed bf16 views: 16-byte bases, strides of multiples of 8."""
+    q, k, v, out = _serving_views(37, H, KV, hd)
+    got = flash_attention_bhsd(q, k, v, out=out)
+    assert got is out and fa_mod.LAUNCHES == 1 and len(fake_launch) == 1
+    args = fake_launch[0]
+    assert args[4:13] == (1, 1, H, KV, 37, 37, hd, 1, 0)
+    # (b, h, s) strides of each view: the head stride is hd, 160 or 224 bytes
+    assert args[13:16] == (37 * H * hd, hd, H * hd)
+    assert args[22:25] == (37 * H * hd, hd, H * hd)
+
+
+@pytest.mark.parametrize("what", ["base", "stride"])
+def test_launcher_rejects_unaligned_bf16_views(fake_launch, what):
+    """TMA reads bf16 tensors through maps whose base and strides must be
+    multiples of 16 bytes; anything else raises, with no slower path."""
+    if what == "base":   # k one element (2 bytes) into its storage
+        q, k, v, out = _serving_views(16, 4, 4, 64)
+        flat = torch.zeros(16 * 4 * 64 + 8,
+                           dtype=torch.bfloat16).as_subclass(_OnCard)
+        k = flat[1:1 + 16 * 4 * 64].view(1, 16, 4, 64).transpose(1, 2)
+    else:                # a (B, S, H, 68) tensor cut to hd = 64
+        wide = torch.zeros((1, 16, 4, 68),
+                           dtype=torch.bfloat16).as_subclass(_OnCard)
+        q = wide[..., :64].transpose(1, 2)
+        k = v = q
+        out = None
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_bhsd(q, k, v, out=out)
+    assert fa_mod.LAUNCHES == 0 and not fake_launch
+
+
+def test_launcher_float32_keeps_its_rule(fake_launch):
+    """float32 runs on CUDA cores: no alignment rule beyond a unit hd
+    stride."""
+    wide = torch.zeros((1, 16, 4, 66)).as_subclass(_OnCard)
+    q = wide[..., :64].transpose(1, 2)
+    out = torch.empty((1, 4, 16, 64)).as_subclass(_OnCard)
+    flash_attention_bhsd(q, q, q, out=out)
+    assert fa_mod.LAUNCHES == 1 and fake_launch[0][4] == 0

@@ -12,7 +12,12 @@ the interpret-mode Pallas kernel is held to the JAX test's
 tail runs other chunk lengths than the reference at the ragged length
 (which halves its chunk to 1 token at S = 37 or 255), so it sums in
 another order over up to ``chunk`` terms: held to chunk * 2^-23 of the
-largest output.
+largest output.  The plain three-pass split (chunk states, state passing,
+chunk scan: the algebra of the CUDA bf16 path) is held to 1e-5 of the
+largest output against both chunked forms, and to the JAX test's
+``5e-4 * max(1, chunk / 64)`` of it against the sequential recurrences
+(another algorithm: decays as differences of cumulative sums, not
+products) and, absolutely, against the interpret-mode kernel.
 """
 import importlib
 
@@ -25,7 +30,7 @@ from repro.kernels.ssd_scan.ops import ssd_scan as j_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_ref as j_ssd_ref
 from repro.models.ssm import ssd_chunked as j_ssd_chunked
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_three_pass
 from repro_torch.models.ssm import ssd_chunked
 
 torch.set_num_threads(1)
@@ -133,6 +138,44 @@ def test_padded_tail_identity(S, chunk):
 
 
 # ---------------------------------------------------------------------------
+# the CUDA bf16 path's three passes, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _kernel_tol(chunk):
+    return 5e-4 * max(1.0, chunk / 64.0)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", CASES + RAGGED)
+def test_three_pass_matches_chunked_forms(Bt, S, H, P, N, chunk):
+    args = _inputs(Bt, S, H, P, N)
+    y, st = ssd_three_pass(*map(_t, args), chunk)
+    assert tuple(y.shape) == (Bt, S, H, P) and tuple(st.shape) == (Bt, H, P,
+                                                                   N)
+    jy, jst = j_ssd_chunked(*map(_j, args), chunk)
+    assert _rel(y, jy) < REL and _rel(st, jst) < REL
+    py, pst = ssd_chunked(*map(_t, args), chunk)
+    assert _rel(y, py) < REL and _rel(st, pst) < REL
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", CASES + RAGGED)
+def test_three_pass_matches_sequential_recurrence(Bt, S, H, P, N, chunk):
+    args = _inputs(Bt, S, H, P, N)
+    y, st = ssd_three_pass(*map(_t, args), chunk)
+    for want_y, want_st in (ssd_ref(*map(_t, args)),
+                            j_ssd_ref(*map(_j, args))):
+        assert _rel(y, want_y) < _kernel_tol(chunk)
+        assert _rel(st, want_st) < _kernel_tol(chunk)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", CASES)
+def test_three_pass_matches_interpret_kernel(Bt, S, H, P, N, chunk):
+    args = _inputs(Bt, S, H, P, N)
+    y, _ = ssd_three_pass(*map(_t, args), chunk)
+    jy = j_ssd_scan(*map(_j, args), chunk=chunk, interpret=True)
+    assert np.abs(y.numpy() - np.asarray(jy)).max() < _kernel_tol(chunk)
+
+
+# ---------------------------------------------------------------------------
 # the card's dispatch, without a card
 # ---------------------------------------------------------------------------
 
@@ -197,4 +240,79 @@ def test_card_tensors_raise_for_unsupported_shapes(fake_launch, P, N, dtype,
                        for i, t in enumerate(_card(x, B, C, dt)))
     with pytest.raises(ValueError, match=match):
         ops.ssd_scan(tx, tb, tc, tdt, _t(A_log))
+    assert launcher.LAUNCHES == 0 and not fake_launch
+
+
+def _xbc_views(S, H, P, N, width_pad=0, dtype=torch.bfloat16):
+    """x, B and C as the model slices them out of one (1, S, H P + 2 N)
+    xBC tensor on the 'card' (plus ``width_pad`` unused columns)."""
+    x, B, C, dt, A_log = _inputs(1, S, H, P, N)
+    xbc = np.concatenate([x.reshape(1, S, -1), B, C,
+                          np.zeros((1, S, width_pad), np.float32)], axis=-1)
+    tx, = _card(xbc)
+    tx = tx.to(dtype)
+    d = H * P
+    return (tx[..., :d].reshape(1, S, H, P), tx[..., d:d + N],
+            tx[..., d + N:d + 2 * N], *_card(dt), _t(A_log))
+
+
+@pytest.mark.parametrize("S,chunk", [(37, 256), (512, 256), (300, 100)])
+def test_card_bf16_allocates_scratch_and_counts_calls(fake_launch,
+                                                      monkeypatch, S, chunk):
+    """The bf16 path's three kernels run over float32 scratch that the
+    launcher allocates: the chunks' states (Bt, nc, H, P, N) and decays
+    (Bt, nc, H, q_pad); one call counts one launch."""
+    H, P, N = 2, 64, 16
+    made = []
+    empty = torch.empty
+
+    def recording(*args, **kw):
+        t = empty(*args, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(launcher.torch, "empty", recording)
+    views = _xbc_views(S, H, P, N)
+    y, state = ops.ssd_scan(*views, chunk=chunk, return_state=True)
+    nc = -(-S // chunk)
+    q_pad = -(-chunk // 64) * 64
+    assert launcher.scratch_shapes(1, S, H, P, N, chunk) == (
+        (1, nc, H, P, N), (1, nc, H, q_pad))
+    args = fake_launch[0]
+    assert args[7:14] == (1, 1, S, H, P, N, chunk)   # bf16 Bt S H P N Q
+    states, acum = (t for t in made if t.dtype == torch.float32
+                    and t.dim() in (4, 5) and t.shape[1] == nc
+                    and t.data_ptr() in (args[21], args[22]))
+    assert tuple(states.shape) == (1, nc, H, P, N) and args[21] == (
+        states.data_ptr())
+    assert tuple(acum.shape) == (1, nc, H, q_pad) and args[22] == (
+        acum.data_ptr())
+    assert y.dtype == torch.bfloat16 and tuple(state.shape) == (1, H, P, N)
+    assert launcher.LAUNCHES == 1
+    ops.ssd_scan(*views, chunk=chunk)
+    assert launcher.LAUNCHES == 2 and len(fake_launch) == 2
+    assert fake_launch[1][21] is not None and fake_launch[1][6] is None
+
+
+def test_card_float32_takes_no_scratch(fake_launch):
+    views = _xbc_views(64, 2, 16, 8, dtype=torch.float32)
+    ops.ssd_scan(*views, chunk=32)
+    assert fake_launch[0][7] == 0 and fake_launch[0][21:23] == (None, None)
+
+
+@pytest.mark.parametrize("what", ["offset", "stride"])
+def test_card_bf16_views_must_be_16_byte_aligned(fake_launch, what):
+    """The bf16 kernels copy 16-byte pieces: a view that starts off a
+    16-byte boundary, or whose row stride is not a multiple of 8 elements,
+    raises before any launch."""
+    H, P, N = 2, 16, 8
+    if what == "stride":   # an xBC row of 49 elements
+        views = _xbc_views(40, H, P, N, width_pad=1)
+    else:                  # B one element (2 bytes) off its boundary
+        views = list(_xbc_views(40, H, P, N, width_pad=8))
+        base = views[1]
+        views[1] = base.as_strided(base.shape, base.stride(),
+                                   base.storage_offset() + 1)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.ssd_scan(*views, chunk=16)
     assert launcher.LAUNCHES == 0 and not fake_launch
