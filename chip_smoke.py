@@ -27,10 +27,13 @@ Wavefront admission (the batched kernels), in order after phase 2 and
 after phase 3:
 
   a. the batched argmax and top-K kernels against their plain PyTorch
-     versions, bit for bit, at N in {4000, 4097, 100000} x Q in {1, 33,
-     4096} x K in {1, 8} (and one K = 40, which takes two passes), on
-     random and tied tables with a fifth of the tasks fitting nowhere;
-     times per sweep at N = 4000, Q = 4096 beside the bound.
+     versions, bit for bit, at N in {2, 4000, 4097, 100000} x Q in {1,
+     33, 64, 4096} x K in {1, 8} (and one K = 40, which takes two
+     passes), on random and tied tables with a fifth of the tasks
+     fitting nowhere, and at R = 3 and on a table off 16 bytes (the
+     instance with R read at run time); times per sweep at N = 4000,
+     Q = 4096 and Q = 64 (graph replay and eager) beside the bound, the
+     achieved GB/s and the earlier design's time.
   b. the wavefront study: phase 3's configuration with
      ``admission_mode="wavefront"``, its first 12 slots; placements and
      admit slots must equal those slots of phase 3's sequential kernel
@@ -132,10 +135,18 @@ PLAIN_SLOTS = 4
 # is held against the sequential run's first WAVE_SLOTS slots.
 WAVE_SLOTS = 12
 # Phase a's sizes, and the width of the synthetic queues of phases a, d, f
-# (the study's compacted queues hold about 4,100-5,100 tasks a slot).
-BATCH_NS = (4000, 4097, 100000)
-BATCH_QS = (1, 33, 4096)
+# (the study's compacted queues hold about 4,100-5,100 tasks a slot; 64 is
+# the dedup's bucket count, 2 the serving engine's replica count).
+BATCH_NS = (2, 4000, 4097, 100000)
+BATCH_QS = (1, 33, 64, 4096)
 QUEUE = 4096
+DEDUP_Q = 64
+# The earlier (warp per task, table tiles through shared memory) design's
+# sweep times at N = 4000, Q = 4096 (K = 8), graph replay, from PERF.md's
+# kernel table: its run P2 (NVIDIA H100 80GB HBM3, 700.00 W); logged
+# beside this run's.
+BATCH_EARLIER_US = {"flex_score_batch_pick": 65.375,
+                    "flex_score_batch_topk": 129.599}
 
 
 def log(msg: str) -> None:
@@ -365,9 +376,31 @@ def batch_kernels_vs_plain(dev) -> list:
             raise AssertionError(f"{name}: scores differ in bits")
         return float((gs - ws).abs().max()) if gs.numel() else 0.0
 
+    worst = {"pick": 0.0, "topk": 0.0}
+
+    def check(what, est, res, src, rows, ks):
+        mat = _task_mat(*rows)
+        got = fs.flex_score_batch_pick(est, res, src, mat)
+        want = _plain_rows(plain_pick, src, rows, est, res)
+        worst["pick"] = max(worst["pick"], same(f"batch_pick {what}", got,
+                                                want))
+        col0 = got[0]
+        for k in ks:
+            got = fs.flex_score_batch_topk(est, res, src, mat, k)
+            want = _plain_rows(plain_topk(k), src, rows, est, res)
+            worst["topk"] = max(worst["topk"], same(
+                f"batch_topk {what} K={k}", got, want))
+            if not torch.equal(got[0][:, 0], col0):
+                raise AssertionError(f"batch_topk {what} K={k}: column 0 "
+                                     f"is not the batched argmax")
+        torch.cuda.synchronize()
+        chunk, splits, blocks = fs.batch_plan(src.shape[1], src.shape[0])
+        log(f"[batch] {what}: argmax and top-K (K in {ks}) bit-equal to "
+            f"the plain versions ({int((col0 < 0).sum())} tasks fit "
+            f"nowhere; {splits} chunk(s) of {chunk} nodes, {blocks} blocks)")
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    worst = {"pick": 0.0, "topk": 0.0}
     for n in BATCH_NS:
         for tied in (False, True):
             est, res, _ = _tables(n, gen, dev, tied)
@@ -375,66 +408,74 @@ def batch_kernels_vs_plain(dev) -> list:
                 src = torch.rand((q, n), generator=gen, device=dev)
                 if tied:
                     src = torch.floor(src * 4) / 4
-                rows = _task_rows(q, gen, dev)
-                mat = _task_mat(*rows)
-                got = fs.flex_score_batch_pick(est, res, src, mat)
-                want = _plain_rows(plain_pick, src, rows, est, res)
-                worst["pick"] = max(worst["pick"], same(
-                    f"batch_pick N={n} Q={q} tied={tied}", got, want))
-                col0 = got[0]
-                ks = (1, 8, 40) if (n, q) == (BATCH_NS[1], BATCH_QS[1]) \
-                    else (1, 8)
-                for k in ks:
-                    got = fs.flex_score_batch_topk(est, res, src, mat, k)
-                    want = _plain_rows(plain_topk(k), src, rows, est, res)
-                    worst["topk"] = max(worst["topk"], same(
-                        f"batch_topk N={n} Q={q} K={k} tied={tied}", got,
-                        want))
-                    if not torch.equal(got[0][:, 0], col0):
-                        raise AssertionError(f"batch_topk K={k}: column 0 "
-                                             f"is not the batched argmax")
-                torch.cuda.synchronize()
-                log(f"[batch] N={n} Q={q} tied={tied}: argmax and top-K "
-                    f"(K in {ks}) bit-equal to the plain versions "
-                    f"({int((col0 < 0).sum())} tasks fit nowhere)")
+                ks = (1, 8, 40) if (n, q) == (4097, 33) else (1, 8)
+                check(f"N={n} Q={q} tied={tied}", est, res, src,
+                      _task_rows(q, gen, dev), ks)
             del src
-
-    n, q, k = FULL["n_nodes"], QUEUE, 8
-    est, res, _ = _tables(n, gen, dev, tied=False)
+    # The kernels' instance with R read at run time: three resources, and
+    # two on a table that does not start on 16 bytes.
+    n, q = 4097, 33
     src = torch.rand((q, n), generator=gen, device=dev)
     rows = _task_rows(q, gen, dev)
-    mat = _task_mat(*rows)
+    est3 = torch.rand((n, 3), generator=gen, device=dev) * 0.8
+    res3 = torch.rand((n, 3), generator=gen, device=dev) * 0.1
+    r3 = torch.cat([rows[0], rows[0][:, :1]], dim=1)
+    check(f"N={n} Q={q} R=3", est3, res3, src, (r3, *rows[1:]), (1, 8, 40))
+    est, res, _ = _tables(n, gen, dev, tied=False)
+    off = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(n, 2)
+    est_off, res_off = off(est), off(res)
+    assert est_off.data_ptr() % 16 == 4 and res_off.data_ptr() % 16 == 4
+    check(f"N={n} Q={q} R=2 table off 16 bytes", est_off, res_off, src,
+          rows, (1, 8, 40))
+
+    n, k = FULL["n_nodes"], 8
     out = []
-    for name, kernel, plain, out_bytes in (
-            ("flex_score_batch_pick",
-             lambda: fs.flex_score_batch_pick(est, res, src, mat),
-             lambda: pick_node_batch_ref(est, res, src, rows[0], rows[1],
-                                         rows[3], rows[4], rows[2]),
-             q * 8),
-            ("flex_score_batch_topk",
-             lambda: fs.flex_score_batch_topk(est, res, src, mat, k),
-             lambda: pick_node_batch_topk_ref(est, res, src, rows[0],
-                                              rows[1], rows[3], rows[4],
-                                              rows[2], k),
-             q * k * 8)):
-        ms = _median_ms(kernel, reps=20, inner=20)
-        plain_ms = _event_ms(plain, reps=5)
-        bound_ms, bound_by = _batch_bound(n, q, out_bytes)
-        log(f"[batch] {name} N={n} Q={q}{f' K={k}' if 'topk' in name else ''}"
-            f": {ms * 1e3:.3f} us per sweep (graph replay), plain "
-            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us "
-            f"({bound_by}), {bound_ms / ms:.3f} of it")
-        out.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/flex_score/csrc/"
-                   "flex_score_batch.cu",
-            replaces=("src/repro/kernels/flex_score/flex_score.py:69"
-                      if name.endswith("pick") else
-                      "src/repro/kernels/flex_score/flex_score.py:114"),
-            launches=0,
-            max_abs_err=worst["pick" if name.endswith("pick") else "topk"],
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
+    for q in (QUEUE, DEDUP_Q):
+        est, res, _ = _tables(n, gen, dev, tied=False)
+        src = torch.rand((q, n), generator=gen, device=dev)
+        rows = _task_rows(q, gen, dev)
+        mat = _task_mat(*rows)
+        for name, kernel, plain, out_bytes in (
+                ("flex_score_batch_pick",
+                 lambda: fs.flex_score_batch_pick(est, res, src, mat),
+                 lambda: pick_node_batch_ref(est, res, src, rows[0], rows[1],
+                                             rows[3], rows[4], rows[2]),
+                 q * 8),
+                ("flex_score_batch_topk",
+                 lambda: fs.flex_score_batch_topk(est, res, src, mat, k),
+                 lambda: pick_node_batch_topk_ref(est, res, src, rows[0],
+                                                  rows[1], rows[3], rows[4],
+                                                  rows[2], k),
+                 q * k * 8)):
+            ms = _median_ms(kernel, reps=20, inner=20)
+            eager = _event_ms(kernel, reps=10)
+            bound_ms, bound_by = _batch_bound(n, q, out_bytes)
+            n_bytes = bound_ms * HBM_BYTES_PER_S / 1e3
+            shape = f"N={n} Q={q}{f' K={k}' if 'topk' in name else ''}"
+            earlier = (f"; earlier design {BATCH_EARLIER_US[name]:.3f} us "
+                       f"(run P2)" if q == QUEUE else "")
+            log(f"[batch] {name} {shape}: {ms * 1e3:.3f} us per sweep "
+                f"(graph replay), {eager * 1e3:.3f} us eager; "
+                f"{n_bytes / ms / 1e6:.1f} GB/s replayed; bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by}), {bound_ms / ms:.3f} "
+                f"of it replayed, {bound_ms / eager:.3f} eager{earlier}")
+            if q != QUEUE:
+                continue
+            plain_ms = _event_ms(plain, reps=5)
+            log(f"[batch] {name} {shape}: plain {plain_ms * 1e3:.1f} us")
+            out.append(dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/flex_score/csrc/"
+                       "flex_score_batch.cu",
+                replaces=("src/repro/kernels/flex_score/flex_score.py:69"
+                          if name.endswith("pick") else
+                          "src/repro/kernels/flex_score/flex_score.py:114"),
+                launches=0,
+                max_abs_err=worst["pick" if name.endswith("pick")
+                                  else "topk"],
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None))
+        del src
     return out
 
 
@@ -756,7 +797,8 @@ def profile_wavefront(dev) -> None:
     log(f"[wprofile] device busy {busy_ms:.2f} ms in {launches} kernels "
         f"({launches / c['rounds']:.1f} per round), idle share "
         f"{1 - busy_ms / wall_ms:.4f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:8] + [e for e in ranked[8:] if "flex_batch" in e.key]:
         log(f"[wprofile]   {e.key[:60]}: {e.count} calls, "
             f"{e.self_device_time_total / 1e3:.3f} ms")
 

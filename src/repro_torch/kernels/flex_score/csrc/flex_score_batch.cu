@@ -19,28 +19,62 @@
 // node on ties, or (NEG_INF, -1) when nothing fits.  The top-K kernel
 // returns each task's k best, ordered by (score desc, node asc), with
 // (NEG_INF, -1) in the slots past its feasible nodes: the order of
-// `lax.top_k` over the whole table, so the TPU kernel's per-tile lists and
-// their merge have no counterpart here.
+// `lax.top_k` over the whole table.
 //
 // Bound: a sweep reads the (Q, N) src_frac plane once (4 Q N bytes: 65.5 MB
 // at Q = 4096, N = 4000, about 20 us at 3.35 TB/s); the node table (8 R N
 // bytes) and the task rows are small beside it, and the arithmetic (about
 // 13 operations per task and node) is a few microseconds at the card's
-// float32 rate.  So bytes bound a sweep.
+// float32 rate.  So bytes bound a sweep, and the design is about keeping
+// enough of them in flight.
 //
-// Design: a block of 8 warps takes 8 tasks, a warp per task.  The node
-// table streams through shared memory in tiles shared by the block's 8
-// tasks; each lane takes every 32nd node of a tile, so a warp reads its
-// task's src_frac row coalesced.  The argmax keeps one (score, node) pair
-// per lane and reduces the warp by shuffles.  The top-K keeps a sorted
-// list of KMAX pairs per lane in registers (insertion by compare and swap,
-// fully unrolled) and merges the warp's 32 lists by k rounds of a
-// shuffle argmax over the list heads, the winner popping its head.  A lane
-// visits its nodes in increasing order and an equal score never displaces
-// an earlier node, so ties keep the lowest index, as argmax and top_k do.
-// One pass holds at most kMaxK = 32 slots; a larger k runs further passes,
-// each taking the best pairs strictly after the last one the previous pass
-// wrote.
+// Design.  A work unit is one task and one chunk of the node range, and a
+// warp takes one unit; a block holds kWarps units.  The launcher picks the
+// chunk (`batch_plan` in flex_score.py): the whole range when the queue
+// alone fills the card, else the range split so that about 16 warps
+// stream on every SM (Q = 1, 33, 64), each chunk a multiple of 4 nodes.
+// A lane takes whole quads of 4 nodes, 32 quads apart, and loads kUnroll
+// of them before it scores any: a 16-byte streaming load of src_frac per
+// quad (scalar loads where the task's row does not start on 16 bytes, as
+// at N % 4 != 0, and in a ragged last quad).  Registers are held to 64 so
+// that 4 blocks fit on an SM: at Q = 4096 the whole grid is resident, 31
+// warps an SM with 1 KB each in flight.  The node table is read through
+// the L1 cache, which holds it across the SM's blocks (64 KB at N = 4000,
+// R = 2); src_frac is read with evict-first loads so that it does not
+// push the table out.  At R = 2 on a 16-byte aligned table a quad's est
+// and reserved are four 16-byte loads; any other R (up to kMaxR), or a
+// table off 16 bytes, takes the same kernel instantiated with R read at
+// run time.
+//
+// Every node a warp scores comes after every node it has scored before
+// (a call of the sweep's visit covers the next 128 nodes), so within a
+// warp a strict `>` on the score alone keeps the lowest node among equal
+// scores; lanes, chunks and merges combine pairs by better(), the total
+// order (score desc, node asc).  The argmax keeps one pair per lane.  The
+// top-K keeps, per warp, the 32 best pairs so far in registers (lane j
+// holds rank j) and the pair at rank k - 1 as a warp-wide threshold
+// (FAISS's WarpSelect: Johnson, Douze and Jegou, "Billion-scale
+// similarity search with GPUs", 2017).  A node is a candidate only if its
+// score beats the threshold's, one compare; a quad in which no lane has
+// one costs one vote.  Candidates go to a per-warp buffer in shared
+// memory (a ballot and a prefix count); at 32 the warp sorts them (a
+// bitonic sort over the lanes) and merges them into its list (a bitonic
+// merge), which raises the threshold.  The first time any lane has a
+// candidate, each lane's best goes straight into the list, so that the
+// threshold rises before the rest are tested.  One pass holds at most
+// kMaxK = 32 slots; a larger k runs further passes, each taking the best
+// pairs strictly after the last one the previous pass wrote.
+//
+// When the node range is split, each unit writes its partial (the argmax
+// pair, or the pass's k-list) to scratch the launcher allocates, and a
+// second small kernel merges a task's partials under the same total
+// order: the TPU kernels' per-tile partials and their merge, here across
+// blocks.  A launcher call counts as one launch (per top-K pass) whether
+// or not the merge runs.
+//
+// Measured (chip_smoke.py phase a, NVIDIA H100 80GB HBM3, 700 W): at
+// N = 4000, Q = 4096 the argmax takes about 24 us and the top-K (K = 8)
+// about 37 us, replayed from a CUDA graph: 0.80 and 0.53 of the bound.
 //
 // Rounding is that of the reference as XLA compiles it, as in
 // flex_score.cu: __fmaf_rn for `penalty * est + reserved` and for
@@ -50,14 +84,18 @@
 // version agree bit for bit.
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;   // tasks per block
-constexpr int kTileFloats = 2048;       // est and reserved floats per tile
+constexpr int kWarps = kThreads / 32;   // work units per block
+constexpr int kBlocksPerSm = 4;         // the sweeps' registers fit 4 blocks
+constexpr int kUnroll = 2;              // quads a lane loads before scoring
 constexpr int kMaxR = 16;
 constexpr int kMaxK = 32;               // slots of one top-K pass
+constexpr int kBuf = 32 * 5;            // a warp's candidates: < 32 + a quad's
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ bool better(float s, int i, float best_s,
@@ -69,8 +107,8 @@ __device__ __forceinline__ bool better(float s, int i, float best_s,
 __device__ __forceinline__ void warp_best(float& s, int& i) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_xor_sync(0xffffffffu, s, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    const float os = __shfl_xor_sync(kFull, s, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
     if (better(os, oi, s, i)) {
       s = os;
       i = oi;
@@ -78,230 +116,561 @@ __device__ __forceinline__ void warp_best(float& s, int& i) {
   }
 }
 
-// Score of the tile's node `row` for `task`; kNegInf when it does not fit.
-__device__ __forceinline__ float node_score(const float* est_s,
-                                            const float* res_s, int row,
-                                            int r, const float* task,
-                                            float src) {
-  const float penalty = task[r];
-  const float cap = task[r + 1];
+// One task row: R resources in registers (read from the row when R = 0,
+// the run-time instance), then penalty, cap, w_load, w_src.
+template <int R>
+struct TaskRow {
+  float req[R > 0 ? R : 1];
+  const float* row;
+  float penalty, cap, w_load, w_src;
+
+  __device__ __forceinline__ TaskRow(const float* task_mat, int q, int r) {
+    row = task_mat + static_cast<size_t>(q) * (r + 4);
+    if constexpr (R > 0) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) req[j] = __ldg(row + j);
+    }
+    penalty = __ldg(row + r);
+    cap = __ldg(row + r + 1);
+    w_load = __ldg(row + r + 2);
+    w_src = __ldg(row + r + 3);
+  }
+  __device__ __forceinline__ float r_at(int j) const {
+    if constexpr (R > 0) {
+      return req[j];
+    } else {
+      return __ldg(row + j);
+    }
+  }
+};
+
+// Score of one node (its est and reserved rows at `e` and `res`);
+// kNegInf when it does not fit.
+template <int R>
+__device__ __forceinline__ float node_score(const TaskRow<R>& t,
+                                            const float* e, const float* res,
+                                            int r, float src) {
+  const int rr = R > 0 ? R : r;
   bool feasible = true;
   float max_load = 0.0f;
-  for (int j = 0; j < r; ++j) {
-    const float load = __fmaf_rn(penalty, est_s[row * r + j],
-                                 res_s[row * r + j]);
-    feasible = feasible && (__fadd_rn(load, task[j]) <= cap);
+#pragma unroll
+  for (int j = 0; j < rr; ++j) {
+    const float load = __fmaf_rn(t.penalty, e[j], res[j]);
+    feasible = feasible && (__fadd_rn(load, t.r_at(j)) <= t.cap);
     max_load = (j == 0) ? load : fmaxf(max_load, load);
   }
   return feasible
-             ? -__fmaf_rn(task[r + 2], max_load, __fmul_rn(task[r + 3], src))
+             ? -__fmaf_rn(t.w_load, max_load, __fmul_rn(t.w_src, src))
              : kNegInf;
 }
 
-// Streams the node table through shared memory and calls visit(row, score)
-// for every node of the warp's task, lane by lane, in increasing row order.
-template <typename Visit>
-__device__ __forceinline__ void sweep(const float* __restrict__ est,
-                                      const float* __restrict__ reserved,
-                                      const float* __restrict__ src_frac,
-                                      const float* __restrict__ task_mat,
-                                      int n, int r, int q_count,
-                                      Visit&& visit) {
-  __shared__ float est_s[kTileFloats];
-  __shared__ float res_s[kTileFloats];
-  __shared__ float task_s[kWarps][kMaxR + 4];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int q = blockIdx.x * kWarps + warp;
-  const bool active = q < q_count;
-  if (active && lane < r + 4) {
-    task_s[warp][lane] = task_mat[static_cast<size_t>(q) * (r + 4) + lane];
+// src_frac of quad j of a task's row (nodes 4j .. 4j + cnt - 1).
+__device__ __forceinline__ void load_src(const float* row, bool aligned,
+                                         int j, int cnt, float (&v)[4]) {
+  if (aligned && cnt == 4) {
+    const float4 x = __ldcs(reinterpret_cast<const float4*>(row) + j);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < cnt ? __ldcs(row + 4 * j + e) : 0.f;
   }
-  const float* src_row = src_frac + static_cast<size_t>(q) * n;
-  const int tile_nodes = kTileFloats / r;
-  for (int base = 0; base < n; base += tile_nodes) {
-    const int rows = min(tile_nodes, n - base);
-    __syncthreads();  // the previous tile is consumed; task_s is written
-    for (int t = threadIdx.x; t < rows * r; t += kThreads) {
-      est_s[t] = est[static_cast<size_t>(base) * r + t];
-      res_s[t] = reserved[static_cast<size_t>(base) * r + t];
-    }
-    __syncthreads();
-    if (active) {
-      for (int row = lane; row < rows; row += 32) {
-        visit(base + row, node_score(est_s, res_s, row, r, task_s[warp],
-                                     src_row[base + row]));
+}
+
+// Scores of quad j; kNegInf past the `cnt` nodes it has.
+template <int R>
+__device__ __forceinline__ void quad_scores(const TaskRow<R>& t,
+                                            const float* __restrict__ est,
+                                            const float* __restrict__ res,
+                                            int r, int j, int cnt,
+                                            const float (&v)[4],
+                                            float (&s)[4]) {
+  if constexpr (R == 2) {
+    if (cnt == 4) {  // the instance runs only on a 16-byte aligned table
+      const float4* e4 = reinterpret_cast<const float4*>(est) + 2 * j;
+      const float4* r4 = reinterpret_cast<const float4*>(res) + 2 * j;
+      const float4 ea = __ldg(e4), eb = __ldg(e4 + 1);
+      const float4 ra = __ldg(r4), rb = __ldg(r4 + 1);
+      const float ev[8] = {ea.x, ea.y, ea.z, ea.w, eb.x, eb.y, eb.z, eb.w};
+      const float rv[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] = node_score<2>(t, ev + 2 * e, rv + 2 * e, 2, v[e]);
       }
+      return;
+    }
+  }
+  const int rr = R > 0 ? R : r;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (e < cnt) {
+      float ev[R > 0 ? R : kMaxR], rv[R > 0 ? R : kMaxR];
+      const size_t at = static_cast<size_t>(4 * j + e) * rr;
+#pragma unroll
+      for (int x = 0; x < (R > 0 ? R : kMaxR); ++x) {
+        if (x < rr) {
+          ev[x] = __ldg(est + at + x);
+          rv[x] = __ldg(res + at + x);
+        }
+      }
+      s[e] = node_score<R>(t, ev, rv, r, v[e]);
+    } else {
+      s[e] = kNegInf;
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The warp's work unit: task q against nodes [n0, n1).  Calls
+// visit(s, node0) on every lane for each of its quads, kNegInf past the
+// unit's last node, in increasing node order: a lane's quads increase, and
+// every node of a call comes after every node of the warp's earlier calls.
+// Every lane makes the same number of calls.
+template <int R, typename Visit>
+__device__ __forceinline__ void sweep(const float* __restrict__ est,
+                                      const float* __restrict__ res,
+                                      const float* __restrict__ src_frac,
+                                      const TaskRow<R>& t, int q, int n,
+                                      int r, int n0, int n1, Visit&& visit) {
+  const int lane = threadIdx.x % 32;
+  const float* row = src_frac + static_cast<size_t>(q) * n;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  const int j0 = n0 / 4;
+  const int j1 = (n1 + 3) / 4;
+  for (int jb = j0; jb < j1; jb += 32 * kUnroll) {
+    float v[kUnroll][4];
+    int cnt[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = jb + lane + 32 * u;
+      cnt[u] = j < j1 ? min(4, n - 4 * j) : 0;
+      load_src(row, aligned, j, cnt[u], v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = jb + lane + 32 * u;
+      float s[4];
+      quad_scores<R>(t, est, res, r, j, cnt[u], v[u], s);
+      visit(s, 4 * j);
+    }
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     flex_batch_pick_kernel(const float* __restrict__ est,
                            const float* __restrict__ reserved,
                            const float* __restrict__ src_frac,
                            const float* __restrict__ task_mat, int n, int r,
-                           int q_count, float* __restrict__ out_score,
-                           int* __restrict__ out_idx) {
+                           int q_count, int chunk, int splits,
+                           float* __restrict__ dst_score,
+                           int* __restrict__ dst_idx) {
+  const int unit = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (unit >= q_count * splits) return;
+  const int q = unit / splits;
+  const int n0 = (unit % splits) * chunk;
+  const TaskRow<R> t(task_mat, q, r);
   float best_s = kNegInf;
   int best_i = INT_MAX;
-  sweep(est, reserved, src_frac, task_mat, n, r, q_count,
-        [&](int node, float s) {
-          if (better(s, node, best_s, best_i)) {
-            best_s = s;
-            best_i = node;
-          }
-        });
+  sweep<R>(est, reserved, src_frac, t, q, n, r, n0, min(n, n0 + chunk),
+           [&](const float (&s)[4], int node0) {
+#pragma unroll
+             for (int e = 0; e < 4; ++e) {
+               if (s[e] > best_s) {
+                 best_s = s[e];
+                 best_i = node0 + e;
+               }
+             }
+           });
   warp_best(best_s, best_i);
-  const int q = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (threadIdx.x % 32 == 0 && q < q_count) {
-    out_score[q] = best_s;
-    out_idx[q] = best_s > kNegInf / 2 ? best_i : -1;
+  if (threadIdx.x % 32 == 0) {
+    if (splits == 1) {  // the final answer
+      dst_score[q] = best_s;
+      dst_idx[q] = best_s > kNegInf / 2 ? best_i : -1;
+    } else {  // the chunk's partial
+      dst_score[unit] = best_s;
+      dst_idx[unit] = best_i;
+    }
   }
 }
 
+// Each task's best of its `splits` partials, one thread per task.
+__global__ void flex_batch_pick_merge(const float* __restrict__ part_score,
+                                      const int* __restrict__ part_idx,
+                                      int q_count, int splits,
+                                      float* __restrict__ out_score,
+                                      int* __restrict__ out_idx) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= q_count) return;
+  float best_s = kNegInf;
+  int best_i = INT_MAX;
+  for (int c = 0; c < splits; ++c) {
+    const size_t at = static_cast<size_t>(q) * splits + c;
+    const float s = part_score[at];
+    const int i = part_idx[at];
+    if (better(s, i, best_s, best_i)) {
+      best_s = s;
+      best_i = i;
+    }
+  }
+  out_score[q] = best_s;
+  out_idx[q] = best_s > kNegInf / 2 ? best_i : -1;
+}
+
+__device__ __forceinline__ unsigned lanes_below() {
+  return (1u << (threadIdx.x % 32)) - 1u;
+}
+
+// Compare-and-exchange with the lane `j` away: keep the better pair when
+// `first`, else the worse.  (Two equal pairs are the same empty slot, so
+// taking the other one changes nothing.)
+__device__ __forceinline__ void exchange(float& s, int& i, int j,
+                                         bool first) {
+  const float os = __shfl_xor_sync(kFull, s, j);
+  const int oi = __shfl_xor_sync(kFull, i, j);
+  if (better(os, oi, s, i) == first) {
+    s = os;
+    i = oi;
+  }
+}
+
+struct Pair {
+  float s;
+  int i;
+};
+
+// The lane's entry of the best 32 of the warp's list (ls, li: lane j holds
+// rank j) and the lanes' 32 pairs (cs, ci).  Sorts the pairs (a bitonic
+// sort over the lanes, best first), keeps the better of rank j and the
+// pairs' rank 31 - j (the best 32 of both, as a bitonic sequence) and
+// sorts that.  Not inlined: it runs a few times per work unit, and a copy
+// at every call site would crowd the sweep's instruction cache.
+__device__ __noinline__ Pair merge_into(float ls, int li, float cs, int ci) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      exchange(cs, ci, j, ((lane & j) == 0) == ((lane & k) == 0));
+    }
+  }
+  const float rs = __shfl_sync(kFull, cs, 31 - lane);
+  const int ri = __shfl_sync(kFull, ci, 31 - lane);
+  if (better(rs, ri, ls, li)) {
+    ls = rs;
+    li = ri;
+  }
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) exchange(ls, li, j, (lane & j) == 0);
+  return {ls, li};
+}
+
+// A warp's running top list: lane j holds rank j of the best pairs merged
+// so far (32 of them), the pair at rank `kth` is the threshold, and a
+// buffer in shared memory holds the candidates not yet merged.  Until
+// rank `kth` is real the threshold is (kNegInf, -1), which every feasible
+// node beats and no infeasible one does.
+struct WarpTopK {
+  float ls;
+  int li;
+  float th_s;
+  int th_i;
+  int kth;
+  int count;
+  bool fresh;  // nothing merged yet
+  float* buf_s;
+  int* buf_i;
+
+  __device__ __forceinline__ WarpTopK(int kpass, float* bs, int* bi)
+      : ls(kNegInf), li(INT_MAX), th_s(kNegInf), th_i(-1), kth(kpass - 1),
+        count(0), fresh(true), buf_s(bs), buf_i(bi) {}
+
+  // Whether pair (s, i) beats the threshold.
+  __device__ __forceinline__ bool beats(float s, int i) const {
+    return better(s, i, th_s, th_i);
+  }
+
+  // Merges the lanes' pairs (cs, ci) into the list; raises the threshold.
+  __device__ __forceinline__ void absorb(float cs, int ci) {
+    const Pair p = merge_into(ls, li, cs, ci);
+    ls = p.s;
+    li = p.i;
+    th_s = __shfl_sync(kFull, ls, kth);
+    th_i = __shfl_sync(kFull, li, kth);
+    if (!(th_s > kNegInf / 2)) th_i = -1;
+    fresh = false;
+  }
+
+  // Every lane offers its pair; `cand` says whether it is one.  Appends
+  // the candidates to the buffer; drain() merges them.
+  __device__ __forceinline__ void push(float s, int i, bool cand) {
+    const unsigned m = __ballot_sync(kFull, cand);
+    if (cand) {
+      const int at = count + __popc(m & lanes_below());
+      buf_s[at] = s;
+      buf_i[at] = i;
+    }
+    count += __popc(m);
+  }
+
+  // Merges the buffer's first 32 candidates while it holds that many.
+  __device__ __forceinline__ void drain() {
+    const int lane = threadIdx.x % 32;
+    while (count >= 32) {
+      __syncwarp();
+      const float cs = buf_s[lane];
+      const int ci = buf_i[lane];
+      // Shift the rest down 32: each slot is read and written by one lane.
+      for (int at = lane + 32; at < count; at += 32) {
+        buf_s[at - 32] = buf_s[at];
+        buf_i[at - 32] = buf_i[at];
+      }
+      count -= 32;
+      __syncwarp();
+      absorb(cs, ci);
+    }
+  }
+
+  // Offers a quad's pairs (s, node0 + e), those with c[e] set.  The first
+  // time any lane has one, each lane's best goes straight into the list,
+  // so that the threshold is raised before the rest are tested: else
+  // every feasible node of the first quads would be a candidate.
+  __device__ __forceinline__ void offer(const float (&s)[4], int node0,
+                                        bool (&c)[4]) {
+    if (fresh) {
+      float bs = kNegInf;
+      int bi = INT_MAX;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (c[e] && better(s[e], node0 + e, bs, bi)) {
+          bs = s[e];
+          bi = node0 + e;
+        }
+      }
+      absorb(bs, bi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[e] = c[e] && node0 + e != bi && beats(s[e], node0 + e);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) push(s[e], node0 + e, c[e]);
+    drain();
+  }
+
+  // Merges what the buffer still holds.
+  __device__ __forceinline__ void flush() {
+    drain();
+    if (count == 0) return;
+    const int lane = threadIdx.x % 32;
+    __syncwarp();
+    const float cs = lane < count ? buf_s[lane] : kNegInf;
+    const int ci = lane < count ? buf_i[lane] : INT_MAX;
+    count = 0;
+    __syncwarp();
+    absorb(cs, ci);
+  }
+};
+
 // One pass of top-K: slots [col0, col0 + kpass) of each task's k slots,
 // holding the best pairs after slot col0 - 1 (all of them when col0 = 0).
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
+// With one chunk it writes them to out; else each unit writes its
+// chunk's kpass best to part (a stride of kp slots per unit).  kAfter:
+// col0 > 0.
+template <int R, bool kAfter>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     flex_batch_topk_kernel(const float* __restrict__ est,
                            const float* __restrict__ reserved,
                            const float* __restrict__ src_frac,
                            const float* __restrict__ task_mat, int n, int r,
-                           int q_count, int k, int col0, int kpass,
+                           int q_count, int chunk, int splits, int k,
+                           int col0, int kpass, int kp,
+                           float* __restrict__ part_score,
+                           int* __restrict__ part_idx,
                            float* __restrict__ out_score,
                            int* __restrict__ out_idx) {
-  const int q = blockIdx.x * kWarps + threadIdx.x / 32;
+  __shared__ float buf_s[kWarps][kBuf];
+  __shared__ int buf_i[kWarps][kBuf];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int unit = blockIdx.x * kWarps + warp;
+  if (unit >= q_count * splits) return;
+  const int q = unit / splits;
+  const int n0 = (unit % splits) * chunk;
   const size_t row0 = static_cast<size_t>(q) * k;
   // The last pair the previous pass wrote; every pair kept must come
   // after it.  An empty slot there means the task has no more nodes.
   float after_s = 0.0f;
   int after_i = -1;
-  bool exhausted = false;
-  if (col0 > 0 && q < q_count) {
+  if (kAfter) {
     after_s = out_score[row0 + col0 - 1];
     after_i = out_idx[row0 + col0 - 1];
-    exhausted = !(after_s > kNegInf / 2);
   }
-
-  float ls[KMAX];
-  int li[KMAX];
+  WarpTopK top(kpass, buf_s[warp], buf_i[warp]);
+  if (!kAfter || after_s > kNegInf / 2) {
+    const TaskRow<R> t(task_mat, q, r);
+    sweep<R>(est, reserved, src_frac, t, q, n, r, n0, min(n, n0 + chunk),
+             [&](const float (&s)[4], int node0) {
+               // Every node merged so far comes before node0, so a node
+               // beats the threshold only by its score.
+               bool c[4];
+               bool any = false;
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    ls[j] = kNegInf;
-    li[j] = INT_MAX;
+               for (int e = 0; e < 4; ++e) {
+                 c[e] = s[e] > top.th_s &&
+                        (!kAfter ||
+                         better(after_s, after_i, s[e], node0 + e));
+                 any = any || c[e];
+               }
+               if (__any_sync(kFull, any)) top.offer(s, node0, c);
+             });
+    top.flush();
   }
-  sweep(est, reserved, src_frac, task_mat, n, r, q_count,
-        [&](int node, float s) {
-          if (exhausted || !(s > kNegInf / 2)) return;
-          if (col0 > 0 && !better(after_s, after_i, s, node)) return;
-          if (!better(s, node, ls[KMAX - 1], li[KMAX - 1])) return;
-          float cs = s;
-          int ci = node;
-#pragma unroll
-          for (int j = 0; j < KMAX; ++j) {
-            if (better(cs, ci, ls[j], li[j])) {
-              const float ts = ls[j];
-              const int ti = li[j];
-              ls[j] = cs;
-              li[j] = ci;
-              cs = ts;
-              ci = ti;
-            }
-          }
-        });
+  if (lane < kpass) {
+    if (splits == 1) {
+      const bool real = top.ls > kNegInf / 2;
+      out_score[row0 + col0 + lane] = real ? top.ls : kNegInf;
+      out_idx[row0 + col0 + lane] = real ? top.li : -1;
+    } else {
+      const size_t at = static_cast<size_t>(unit) * kp + lane;
+      part_score[at] = top.ls;
+      part_idx[at] = top.li;
+    }
+  }
+}
 
+// Slots [col0, col0 + kpass) of each task from its `splits` partial lists
+// (kpass pairs each, kp apart), one warp per task.
+__global__ void __launch_bounds__(kThreads)
+    flex_batch_topk_merge(const float* __restrict__ part_score,
+                          const int* __restrict__ part_idx, int q_count,
+                          int splits, int k, int col0, int kpass, int kp,
+                          float* __restrict__ out_score,
+                          int* __restrict__ out_idx) {
+  __shared__ float buf_s[kWarps][kBuf];
+  __shared__ int buf_i[kWarps][kBuf];
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int j = 0; j < kpass; ++j) {
-    float s = ls[0];
-    int i = li[0];
-    warp_best(s, i);
-    if (li[0] == i) {  // this lane held the winner (or every head is empty)
-#pragma unroll
-      for (int t = 0; t < KMAX - 1; ++t) {
-        ls[t] = ls[t + 1];
-        li[t] = li[t + 1];
-      }
-      ls[KMAX - 1] = kNegInf;
-      li[KMAX - 1] = INT_MAX;
+  const int q = blockIdx.x * kWarps + warp;
+  if (q >= q_count) return;
+  WarpTopK top(kpass, buf_s[warp], buf_i[warp]);
+  const int pairs = splits * kpass;
+  for (int base = 0; base < pairs; base += 32) {
+    const int t = base + lane;
+    float s = kNegInf;
+    int i = INT_MAX;
+    if (t < pairs) {
+      const size_t at =
+          (static_cast<size_t>(q) * splits + t / kpass) * kp + t % kpass;
+      s = part_score[at];
+      i = part_idx[at];
     }
-    if (lane == 0 && q < q_count) {
-      const bool real = s > kNegInf / 2;
-      out_score[row0 + col0 + j] = real ? s : kNegInf;
-      out_idx[row0 + col0 + j] = real ? i : -1;
-    }
+    top.push(s, i, top.beats(s, i));
+    top.drain();
+  }
+  top.flush();
+  if (lane < kpass) {
+    const size_t row0 = static_cast<size_t>(q) * k;
+    const bool real = top.ls > kNegInf / 2;
+    out_score[row0 + col0 + lane] = real ? top.ls : kNegInf;
+    out_idx[row0 + col0 + lane] = real ? top.li : -1;
   }
 }
 
-template <int KMAX>
-int launch_topk(const float* est, const float* reserved,
-                const float* src_frac, const float* task_mat, int n, int r,
-                int q, int k, int col0, int kpass, float* out_score,
-                int* out_idx, cudaStream_t stream) {
-  const int blocks = (q + kWarps - 1) / kWarps;
-  flex_batch_topk_kernel<KMAX><<<blocks, kThreads, 0, stream>>>(
-      est, reserved, src_frac, task_mat, n, r, q, k, col0, kpass, out_score,
-      out_idx);
-  return static_cast<int>(cudaGetLastError());
+bool shape_ok(int n, int r, int q, int chunk, const void* part_score,
+              const void* part_idx) {
+  if (n <= 0 || q <= 0 || r <= 0 || r > kMaxR || chunk <= 0 || chunk % 4) {
+    return false;
+  }
+  return chunk >= n || (part_score != nullptr && part_idx != nullptr);
 }
 
-bool shape_ok(int n, int r, int q) {
-  return n > 0 && q > 0 && r > 0 && r <= kMaxR;
+// Whether the R = 2 instance may run: it reads the table 16 bytes at a
+// time.
+bool table_vectors(int r, const float* est, const float* reserved) {
+  return r == 2 && (reinterpret_cast<uintptr_t>(est) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(reserved) & 15) == 0;
+}
+
+int blocks_for(long long units) {
+  return static_cast<int>((units + kWarps - 1) / kWarps);
 }
 
 }  // namespace
 
-// Most resources a task row may have (the kernels keep a row in shared
-// memory), and the slots one top-K launch fills.
+// Most resources a task row may have, and the slots one top-K pass fills.
 extern "C" int flex_score_batch_max_r() { return kMaxR; }
 extern "C" int flex_score_batch_pass_slots() { return kMaxK; }
 
-// The argmax of every task, on `stream`; returns cudaGetLastError() as an
-// int (cudaErrorInvalidValue for a shape the kernel does not take).
+// The argmax of every task, on `stream`, over chunks of `chunk` nodes (a
+// multiple of 4; chunk >= n sweeps each task's row whole).  With more than
+// one chunk, part_score/part_idx hold q * ceil(n / chunk) partials and a
+// merge kernel follows.  Returns cudaGetLastError() as an int
+// (cudaErrorInvalidValue for a shape the kernels do not take).
 extern "C" int flex_score_batch_pick(const float* est, const float* reserved,
                                      const float* src_frac,
                                      const float* task_mat, int n, int r,
-                                     int q, float* out_score, int* out_idx,
-                                     cudaStream_t stream) {
-  if (!shape_ok(n, r, q)) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (q + kWarps - 1) / kWarps;
-  flex_batch_pick_kernel<<<blocks, kThreads, 0, stream>>>(
-      est, reserved, src_frac, task_mat, n, r, q, out_score, out_idx);
+                                     int q, int chunk, float* part_score,
+                                     int* part_idx, float* out_score,
+                                     int* out_idx, cudaStream_t stream) {
+  if (!shape_ok(n, r, q, chunk, part_score, part_idx)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int splits = (n + chunk - 1) / chunk;
+  float* dst_s = splits == 1 ? out_score : part_score;
+  int* dst_i = splits == 1 ? out_idx : part_idx;
+  const int blocks = blocks_for(static_cast<long long>(q) * splits);
+  if (table_vectors(r, est, reserved)) {
+    flex_batch_pick_kernel<2><<<blocks, kThreads, 0, stream>>>(
+        est, reserved, src_frac, task_mat, n, r, q, chunk, splits, dst_s,
+        dst_i);
+  } else {
+    flex_batch_pick_kernel<0><<<blocks, kThreads, 0, stream>>>(
+        est, reserved, src_frac, task_mat, n, r, q, chunk, splits, dst_s,
+        dst_i);
+  }
+  if (splits > 1) {
+    flex_batch_pick_merge<<<(q + kThreads - 1) / kThreads, kThreads, 0,
+                            stream>>>(part_score, part_idx, q, splits,
+                                      out_score, out_idx);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The k best of every task, into (q, k) row-major outputs, on `stream`:
-// ceil(k / 32) launches, one per pass.  Returns as flex_score_batch_pick.
+// ceil(k / 32) passes, each one sweep (and, with more than one chunk, a
+// merge over part_score/part_idx, which hold q * ceil(n / chunk) *
+// min(k, 32) pairs).  Returns as flex_score_batch_pick.
 extern "C" int flex_score_batch_topk(const float* est, const float* reserved,
                                      const float* src_frac,
                                      const float* task_mat, int n, int r,
-                                     int q, int k, float* out_score,
-                                     int* out_idx, cudaStream_t stream) {
-  if (!shape_ok(n, r, q) || k <= 0) {
+                                     int q, int k, int chunk,
+                                     float* part_score, int* part_idx,
+                                     float* out_score, int* out_idx,
+                                     cudaStream_t stream) {
+  if (!shape_ok(n, r, q, chunk, part_score, part_idx) || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int splits = (n + chunk - 1) / chunk;
+  const int kp = k < kMaxK ? k : kMaxK;
+  const int blocks = blocks_for(static_cast<long long>(q) * splits);
+  const bool vec = table_vectors(r, est, reserved);
   for (int col0 = 0; col0 < k; col0 += kMaxK) {
-    const int kpass = min(kMaxK, k - col0);
-    int err;
-    if (kpass <= 1) {
-      err = launch_topk<1>(est, reserved, src_frac, task_mat, n, r, q, k,
-                           col0, kpass, out_score, out_idx, stream);
-    } else if (kpass <= 2) {
-      err = launch_topk<2>(est, reserved, src_frac, task_mat, n, r, q, k,
-                           col0, kpass, out_score, out_idx, stream);
-    } else if (kpass <= 4) {
-      err = launch_topk<4>(est, reserved, src_frac, task_mat, n, r, q, k,
-                           col0, kpass, out_score, out_idx, stream);
-    } else if (kpass <= 8) {
-      err = launch_topk<8>(est, reserved, src_frac, task_mat, n, r, q, k,
-                           col0, kpass, out_score, out_idx, stream);
-    } else if (kpass <= 16) {
-      err = launch_topk<16>(est, reserved, src_frac, task_mat, n, r, q, k,
-                            col0, kpass, out_score, out_idx, stream);
-    } else {
-      err = launch_topk<32>(est, reserved, src_frac, task_mat, n, r, q, k,
-                            col0, kpass, out_score, out_idx, stream);
+    const int kpass = k - col0 < kMaxK ? k - col0 : kMaxK;
+    auto kernel = vec ? (col0 > 0 ? flex_batch_topk_kernel<2, true>
+                                  : flex_batch_topk_kernel<2, false>)
+                      : (col0 > 0 ? flex_batch_topk_kernel<0, true>
+                                  : flex_batch_topk_kernel<0, false>);
+    kernel<<<blocks, kThreads, 0, stream>>>(
+        est, reserved, src_frac, task_mat, n, r, q, chunk, splits, k, col0,
+        kpass, kp, part_score, part_idx, out_score, out_idx);
+    if (splits > 1) {
+      flex_batch_topk_merge<<<blocks_for(q), kThreads, 0, stream>>>(
+          part_score, part_idx, q, splits, k, col0, kpass, kp, out_score,
+          out_idx);
     }
+    const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
   return 0;

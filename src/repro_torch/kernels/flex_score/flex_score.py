@@ -3,14 +3,17 @@
 ``flex_score_pick`` (``csrc/flex_score.cu``) makes one decision;
 ``flex_score_batch_pick`` and ``flex_score_batch_topk``
 (``csrc/flex_score_batch.cu``) score a whole queue.  Each checks its
-tensors, allocates the outputs, launches on the current stream and raises
-if a launch fails.  None waits for the device.  ``LAUNCHES``,
-``BATCH_LAUNCHES`` and ``TOPK_LAUNCHES`` count the kernel launches of
-each, so a run can show that its decisions went through the kernels.
+tensors, allocates the outputs (and the batched kernels' scratch, see
+:func:`batch_plan`), launches on the current stream and raises if a launch
+fails.  None waits for the device.  ``LAUNCHES``, ``BATCH_LAUNCHES`` and
+``TOPK_LAUNCHES`` count the kernel launches of each, so a run can show
+that its decisions went through the kernels: one per call of the argmax
+and one per top-K pass, the merge kernel of a split sweep included.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,13 +31,64 @@ def reset_launches() -> None:
     LAUNCHES = BATCH_LAUNCHES = TOPK_LAUNCHES = 0
 
 
-def _fn(lib_name: str, fn_name: str, argtypes):
-    fn = getattr(_build.load(lib_name), fn_name)
+def _declare(fn, argtypes):
     # Pointers and the stream as c_void_p: left undeclared, ctypes would
     # pass them as 32-bit ints and cut them.
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _fn(lib_name: str, fn_name: str, argtypes):
+    return _declare(getattr(_build.load(lib_name), fn_name), argtypes)
+
+
+class _BatchLib(NamedTuple):
+    pick: object
+    topk: object
+    max_r: int        # most resources a task row may have
+    pass_slots: int   # slots one top-K pass fills
+
+
+_BATCH = {}
+
+
+def _batch_lib() -> _BatchLib:
+    """The batched kernels' entry points and constants, looked up once
+    per loaded library."""
+    lib = _build.load("flex_score_batch")
+    found = _BATCH.get(lib)
+    if found is None:
+        found = _BATCH[lib] = _BatchLib(
+            _declare(lib.flex_score_batch_pick,
+                     [_PTR] * 4 + [_INT] * 4 + [_PTR] * 5),
+            _declare(lib.flex_score_batch_topk,
+                     [_PTR] * 4 + [_INT] * 5 + [_PTR] * 5),
+            lib.flex_score_batch_max_r(), lib.flex_score_batch_pass_slots())
+    return found
+
+
+# The batched sweep's plan: a warp per (task, chunk of the node range),
+# WARPS of them a block (kWarps in csrc/flex_score_batch.cu).  A queue that
+# cannot keep FILL_WARPS warps streaming (16 on each of the H100's 132
+# SMs) has its node range split into chunks of at least MIN_CHUNK nodes
+# (two 16-byte loads a lane), at most MAX_SPLITS of them.
+WARPS = 8
+FILL_WARPS = 16 * 132
+MIN_CHUNK = 256
+MAX_SPLITS = 32
+
+
+def batch_plan(n: int, q: int):
+    """(chunk, splits, blocks) of a batched sweep over ``n`` nodes for
+    ``q`` tasks: nodes per chunk (a multiple of 4), chunks per task, and
+    the sweep kernel's blocks.  With ``splits > 1`` the launcher allocates
+    ``q * splits`` partials and the kernel merges them in a second pass."""
+    splits = max(1, min(-(-FILL_WARPS // q), -(-n // MIN_CHUNK), MAX_SPLITS))
+    chunk = -(-n // splits)
+    chunk += -chunk % 4
+    splits = -(-n // chunk)
+    return chunk, splits, -(-q * splits // WARPS)
 
 
 def _check(caller, name, t, shape, dtype, device):
@@ -86,6 +140,19 @@ def flex_score_pick(est: torch.Tensor, reserved: torch.Tensor,
     return idx, score
 
 
+def _scratch(q, splits, slots, device):
+    """The split sweep's partials (score, node), or None for one chunk."""
+    if splits == 1:
+        return None, None
+    shape = (q, splits, slots)
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _check_batch(caller, est, reserved, src_frac, task_mat):
     """Shapes (N, R, Q) of a batched call, after checking every tensor."""
     if est.dim() != 2 or task_mat.dim() != 2:
@@ -99,20 +166,22 @@ def _check_batch(caller, est, reserved, src_frac, task_mat):
     _check(caller, "reserved", reserved, (n, r), torch.float32, device)
     _check(caller, "src_frac", src_frac, (q, n), torch.float32, device)
     _check(caller, "task_mat", task_mat, (q, r + 4), torch.float32, device)
-    lib = _build.load("flex_score_batch")
-    if r > lib.flex_score_batch_max_r():
-        raise ValueError(f"{caller}: at most "
-                         f"{lib.flex_score_batch_max_r()} resources, got {r}")
+    max_r = _batch_lib().max_r
+    if r > max_r:
+        raise ValueError(f"{caller}: at most {max_r} resources, got {r}")
     return n, r, q
 
 
 def flex_score_batch_pick(est: torch.Tensor, reserved: torch.Tensor,
                           src_frac: torch.Tensor, task_mat: torch.Tensor):
-    """Each queued task's decision on the card, in one launch.
+    """Each queued task's decision on the card, in one sweep.
 
     est/reserved (N, R) f32; src_frac (Q, N) f32; task_mat (Q, R + 4) f32,
     row q packed ``[r..., penalty, cap, w_load, w_src]``; all contiguous on
     one CUDA device.  Returns (idx (Q,) i32 or -1, best score (Q,) f32).
+    A sweep whose node range :func:`batch_plan` splits runs a second,
+    merging kernel; either way a call counts one launch in
+    ``BATCH_LAUNCHES``.
     """
     caller = "flex_score_batch_pick"
     n, r, q = _check_batch(caller, est, reserved, src_frac, task_mat)
@@ -121,12 +190,13 @@ def flex_score_batch_pick(est: torch.Tensor, reserved: torch.Tensor,
     idx = torch.empty(q, dtype=torch.int32, device=device)
     if q == 0:
         return idx, score
-    fn = _fn("flex_score_batch", "flex_score_batch_pick",
-             [_PTR] * 4 + [_INT] * 3 + [_PTR] * 3)
+    chunk, splits, _ = batch_plan(n, q)
+    part_s, part_i = _scratch(q, splits, 1, device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    _raise_on(caller, fn(est.data_ptr(), reserved.data_ptr(),
-                         src_frac.data_ptr(), task_mat.data_ptr(), n, r, q,
-                         score.data_ptr(), idx.data_ptr(), stream))
+    _raise_on(caller, _batch_lib().pick(
+        est.data_ptr(), reserved.data_ptr(), src_frac.data_ptr(),
+        task_mat.data_ptr(), n, r, q, chunk, _ptr(part_s), _ptr(part_i),
+        score.data_ptr(), idx.data_ptr(), stream))
     global BATCH_LAUNCHES
     BATCH_LAUNCHES += 1
     return idx, score
@@ -139,8 +209,10 @@ def flex_score_batch_topk(est: torch.Tensor, reserved: torch.Tensor,
 
     Inputs as in :func:`flex_score_batch_pick`.  Returns (idx (Q, k) i32,
     score (Q, k) f32), each row ordered by (score desc, node asc), with
-    (-1, NEG_INF) past the task's feasible nodes.  One launch fills 32
-    slots; a larger ``k`` takes ``ceil(k / 32)`` launches.
+    (-1, NEG_INF) past the task's feasible nodes.  One pass fills 32
+    slots; a larger ``k`` takes ``ceil(k / 32)`` passes, each counted as
+    one launch in ``TOPK_LAUNCHES`` (with the merging kernel of a split
+    sweep, see :func:`flex_score_batch_pick`).
     """
     caller = "flex_score_batch_topk"
     k = int(k)
@@ -152,13 +224,15 @@ def flex_score_batch_topk(est: torch.Tensor, reserved: torch.Tensor,
     idx = torch.empty((q, k), dtype=torch.int32, device=device)
     if q == 0:
         return idx, score
-    lib = _build.load("flex_score_batch")
-    fn = _fn("flex_score_batch", "flex_score_batch_topk",
-             [_PTR] * 4 + [_INT] * 4 + [_PTR] * 3)
+    lib = _batch_lib()
+    slots = lib.pass_slots
+    chunk, splits, _ = batch_plan(n, q)
+    part_s, part_i = _scratch(q, splits, min(k, slots), device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    _raise_on(caller, fn(est.data_ptr(), reserved.data_ptr(),
-                         src_frac.data_ptr(), task_mat.data_ptr(), n, r, q,
-                         k, score.data_ptr(), idx.data_ptr(), stream))
+    _raise_on(caller, lib.topk(
+        est.data_ptr(), reserved.data_ptr(), src_frac.data_ptr(),
+        task_mat.data_ptr(), n, r, q, k, chunk, _ptr(part_s),
+        _ptr(part_i), score.data_ptr(), idx.data_ptr(), stream))
     global TOPK_LAUNCHES
-    TOPK_LAUNCHES += -(-k // lib.flex_score_batch_pass_slots())
+    TOPK_LAUNCHES += -(-k // slots)
     return idx, score

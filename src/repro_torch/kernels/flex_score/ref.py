@@ -92,3 +92,84 @@ def pick_node_batch_topk_ref(est, reserved, src_frac, r_task, penalty,
         idx = torch.cat([idx, idx.new_full((q, k - n), -1)], dim=1)
     idx = torch.where(best > NEG_INF / 2, idx, -1).to(torch.int32)
     return idx, best, best[:, 0] > NEG_INF / 2
+
+
+# An empty partial's node: what the CUDA kernels write there (INT_MAX).
+_NO_NODE = 2 ** 31 - 1
+
+
+def _ranked(score, node, k):
+    """The k best (score, node) pairs of each row, ordered by (score desc,
+    node asc); columns of equal score must come in node order, as chunks
+    and their partials do."""
+    score, order = torch.sort(score, dim=1, descending=True, stable=True)
+    return score[:, :k], torch.gather(node, 1, order)[:, :k]
+
+
+def _chunk_best(score, chunk, k):
+    """Each chunk's k best pairs, (Q, ceil(N / chunk) * k) with node ids of
+    the whole row; an empty slot is (NEG_INF, _NO_NODE)."""
+    q, n = score.shape
+    nodes = torch.arange(n, dtype=torch.int64, device=score.device)
+    parts_s, parts_i = [], []
+    for lo in range(0, n, chunk):
+        s = score[:, lo:lo + chunk]
+        s, i = _ranked(s, nodes[lo:lo + chunk].expand(q, -1), k)
+        if s.shape[1] < k:
+            s = torch.cat([s, s.new_full((q, k - s.shape[1]), NEG_INF)], 1)
+            i = torch.cat([i, i.new_full((q, k - i.shape[1]), 0)], 1)
+        parts_s.append(s)
+        parts_i.append(torch.where(s > NEG_INF / 2, i, _NO_NODE))
+    return torch.cat(parts_s, 1), torch.cat(parts_i, 1)
+
+
+def pick_node_batch_split(est, reserved, src_frac, r_task, penalty, w_load,
+                          w_src, cap, chunk):
+    """The CUDA argmax's algebra when its node range is split: each chunk
+    of ``chunk`` nodes reduces to its best (score, node), empty as
+    (NEG_INF, INT_MAX), and the partials merge by (score desc, node asc).
+    Equals :func:`pick_node_batch_ref` bit for bit.
+
+    Returns (idx (Q,) i32 or -1, best_score (Q,) f32, any_feasible (Q,)).
+    """
+    score = _batch_scores(est, reserved, src_frac, r_task, penalty, w_load,
+                          w_src, cap)
+    best, idx = _ranked(*_chunk_best(score, chunk, 1), 1)
+    best, idx = best[:, 0], idx[:, 0]
+    any_feasible = best > NEG_INF / 2
+    return (torch.where(any_feasible, idx, -1).to(torch.int32), best,
+            any_feasible)
+
+
+def pick_node_batch_topk_split(est, reserved, src_frac, r_task, penalty,
+                               w_load, w_src, cap, k, chunk, pass_slots=32):
+    """The CUDA top-K's algebra: ``ceil(k / pass_slots)`` passes, each
+    taking the pairs strictly after the last one the previous pass wrote
+    (none once that slot is empty), then each chunk's ``pass_slots`` best
+    of them (fewer in the last pass), merged by (score desc, node asc).
+    Equals :func:`pick_node_batch_topk_ref` bit for bit.
+
+    Returns (idx (Q, k) i32, score (Q, k) f32, any_feasible (Q,)).
+    """
+    score = _batch_scores(est, reserved, src_frac, r_task, penalty, w_load,
+                          w_src, cap)
+    q, n = score.shape
+    nodes = torch.arange(n, device=score.device)
+    best = score.new_full((q, k), NEG_INF)
+    idx = torch.full((q, k), -1, dtype=torch.int64, device=score.device)
+    for col0 in range(0, k, pass_slots):
+        kpass = min(pass_slots, k - col0)
+        ok = score > NEG_INF / 2
+        if col0:
+            a_s, a_i = best[:, col0 - 1:col0], idx[:, col0 - 1:col0]
+            ok &= (a_s > NEG_INF / 2) & (
+                (score < a_s) | ((score == a_s) & (nodes > a_i)))
+        parts = _chunk_best(torch.where(ok, score, NEG_INF), chunk, kpass)
+        s, i = _ranked(*parts, kpass)
+        if s.shape[1] < kpass:   # fewer partials than slots: k > N
+            pad = kpass - s.shape[1]
+            s = torch.cat([s, s.new_full((q, pad), NEG_INF)], 1)
+            i = torch.cat([i, i.new_full((q, pad), _NO_NODE)], 1)
+        best[:, col0:col0 + kpass] = s
+        idx[:, col0:col0 + kpass] = torch.where(s > NEG_INF / 2, i, -1)
+    return idx.to(torch.int32), best, best[:, 0] > NEG_INF / 2

@@ -42,7 +42,9 @@ from repro_torch.kernels.flex_score import flex_score as fs
 from repro_torch.kernels.flex_score.ops import (flex_pick_node_batch,
                                                 flex_pick_node_batch_topk)
 from repro_torch.kernels.flex_score.ref import (NEG_INF, pick_node_batch_ref,
+                                                pick_node_batch_split,
                                                 pick_node_batch_topk_ref,
+                                                pick_node_batch_topk_split,
                                                 pick_node_ref)
 
 SIZES = [1, 5, 100, 512, 513, 1000]
@@ -237,3 +239,247 @@ def test_cpu_dispatch_broadcasts_scalars_without_launching():
                                     full(1.0), 3)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (fs.BATCH_LAUNCHES, fs.TOPK_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' split-and-merge algebra (``pick_node_batch_split`` and
+# ``pick_node_batch_topk_split``): per-chunk partials merged by (score desc,
+# node asc), the top-K in passes of ``pass_slots`` slots.  Held bit-equal
+# to the plain versions and to the reference, jitted and interpret-mode.
+# ---------------------------------------------------------------------------
+
+# name -> (N, Q, K, input case, chunk sizes besides the launcher's plan)
+SPLIT_CASES = {
+    # quarter-step scores: equal scores on both sides of chunk boundaries
+    "ties_across_chunks": (64, 7, 8, "ties", (4, 8, 12)),
+    # cap < 1 leaves a chunk of 4 or 8 nodes fewer than K feasible ones
+    "chunks_short_of_k": (100, 7, 8, "cap_below_one", (4, 8)),
+    "k_over_n": (5, 7, 12, "random", (4,)),
+    "k_40_two_passes": (100, 7, 40, "ties", (4, 12, 52)),
+    "n_mod_4": (513, INTERPRET_Q, 8, "weights", (4, 12)),
+    "n_2_replicas": (2, 7, 8, "random", (4,)),
+}
+
+
+def _split_chunks(n, q, extra):
+    return sorted({fs.batch_plan(n, q)[0], *extra})
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_pick_bit_equal(name):
+    n, q, _, case, extra = SPLIT_CASES[name]
+    arrays = _inputs(n, q, case, seed=7)
+    est, res, src, r, penalty, cap, w_load, w_src = arrays
+    want = _jax_batch(est, res, src, r, penalty, w_load, w_src, cap)
+    plain = _port(pick_node_batch_ref, arrays)
+    for chunk in _split_chunks(n, q, extra):
+        got = _port(pick_node_batch_split, arrays, chunk=chunk)
+        _assert_same(got, want)
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+    if q == INTERPRET_Q:
+        _assert_same(plain, jax_ops.flex_pick_node_batch(
+            est, res, src, r, penalty, w_load=w_load, w_src=w_src, cap=cap,
+            interpret=True), score_bits=case != "weights")
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_topk_bit_equal(name):
+    n, q, k, case, extra = SPLIT_CASES[name]
+    arrays = _inputs(n, q, case, seed=8)
+    est, res, src, r, penalty, cap, w_load, w_src = arrays
+    want = _jax_topk(est, res, src, r, penalty, w_load, w_src, cap, k=k)
+    plain = _port(pick_node_batch_topk_ref, arrays, k=k)
+    for chunk in _split_chunks(n, q, extra):
+        # the kernels' passes of 32 slots, and passes of 3 to stress the
+        # "strictly after the last pair written" rule
+        for slots in (32, 3):
+            got = _port(pick_node_batch_topk_split, arrays, k=k, chunk=chunk,
+                        pass_slots=slots)
+            _assert_same(got, want)
+            for a, b in zip(got, plain):
+                assert torch.equal(a, b)
+    if q == INTERPRET_Q:
+        _assert_same(plain, jax_ops.flex_pick_node_batch_topk(
+            est, res, src, r, penalty, w_load=w_load, w_src=w_src, cap=cap,
+            k=k, interpret=True), score_bits=case != "weights")
+    if name == "ties_across_chunks":
+        # the case is what it says: some row's top K holds equal scores on
+        # both sides of a boundary of 4-node chunks
+        idx, score = plain[0].numpy(), plain[1].numpy()
+        straddles = [
+            (i, j) for row in range(q) for i in range(k) for j in range(i)
+            if idx[row, i] >= 0 and score[row, i] == score[row, j]
+            and idx[row, i] // 4 != idx[row, j] // 4]
+        assert straddles
+    if name == "chunks_short_of_k":
+        # rows with K feasible nodes, whose 8-node chunks hold fewer
+        full = _port(pick_node_batch_topk_ref, arrays, k=n)[0].numpy()
+        feasible = np.zeros((q, n), bool)
+        for row in range(q):
+            feasible[row, full[row][full[row] >= 0]] = True
+        per_chunk = np.stack([feasible[:, lo:lo + 8].sum(1)
+                              for lo in range(0, n, 8)], axis=1)
+        rows = feasible.sum(1) >= k
+        assert rows.any() and ((per_chunk[rows] > 0)
+                               & (per_chunk[rows] < k)).any()
+
+
+# ---------------------------------------------------------------------------
+# The launchers on "card" tensors, with the ctypes calls faked: the plan,
+# the scratch, the handles, the counts and the raises.
+# ---------------------------------------------------------------------------
+
+# (Q, N) -> (chunk, splits, blocks): split only where Q cannot fill the
+# card, each chunk a multiple of 4 nodes and at least 256 (32 at most).
+PLANS = {
+    (1, 2): (4, 1, 1), (1, 4000): (252, 16, 2), (1, 4097): (244, 17, 3),
+    (1, 100000): (3128, 32, 4),
+    (33, 2): (4, 1, 5), (33, 4000): (252, 16, 66), (33, 4097): (244, 17, 71),
+    (33, 100000): (3128, 32, 132),
+    (64, 2): (4, 1, 8), (64, 4000): (252, 16, 128),
+    (64, 4097): (244, 17, 136), (64, 100000): (3128, 32, 256),
+    (4096, 2): (4, 1, 512), (4096, 4000): (4000, 1, 512),
+    (4096, 4097): (4100, 1, 512), (4096, 100000): (100000, 1, 512),
+}
+
+
+@pytest.mark.parametrize("q,n", sorted(PLANS))
+def test_batch_plan(q, n):
+    chunk, splits, blocks = fs.batch_plan(n, q)
+    assert (chunk, splits, blocks) == PLANS[q, n]
+    assert chunk % 4 == 0 and (splits - 1) * chunk < n <= splits * chunk
+    assert blocks == -(-q * splits // fs.WARPS)
+    assert splits == 1 or q * splits <= fs.FILL_WARPS + q
+    assert splits <= fs.MAX_SPLITS
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _FakeBatchLib:
+    """Stands in for the built library: records each call and each lookup
+    of an entry point."""
+
+    def __init__(self, max_r=16):
+        self.calls, self.lookups = [], []
+        self._max_r = max_r
+
+    def _record(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+    def __getattr__(self, name):
+        if not name.startswith("flex_score_batch"):
+            raise AttributeError(name)
+        self.lookups.append(name)
+        if name == "flex_score_batch_max_r":
+            return lambda: self._max_r
+        if name == "flex_score_batch_pass_slots":
+            return lambda: 32
+        return self._record(name)
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeBatchLib()
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(fs._build, "load", lambda name: lib)
+    monkeypatch.setattr(fs, "_BATCH", {})
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream)
+    fs.reset_launches()
+    return lib
+
+
+def _card_inputs(n, q, r=2):
+    gen = torch.Generator().manual_seed(n + q)
+    make = lambda *shape: torch.rand(shape, generator=gen).as_subclass(
+        _OnCard)
+    return make(n, r), make(n, r), make(q, n), make(q, r + 4)
+
+
+def _recording_empty(monkeypatch):
+    made = []
+    empty = torch.empty
+
+    def recording(*args, **kw):
+        t = empty(*args, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(fs.torch, "empty", recording)
+    return made
+
+
+@pytest.mark.parametrize("n,q", [(2, 3), (4097, 2), (300, 4096)])
+def test_card_pick_passes_the_plan_and_scratch(fake_lib, monkeypatch, n, q):
+    made = _recording_empty(monkeypatch)
+    idx, score = fs.flex_score_batch_pick(*_card_inputs(n, q))
+    chunk, splits, _ = fs.batch_plan(n, q)
+    (name, args), = fake_lib.calls
+    assert name == "flex_score_batch_pick"
+    assert args[4:8] == (n, 2, q, chunk)        # n r q chunk
+    part_s, part_i = args[8:10]
+    if splits == 1:
+        assert part_s is None and part_i is None
+    else:
+        s, i = (next(t for t in made if t.data_ptr() == p)
+                for p in (part_s, part_i))
+        assert tuple(s.shape) == tuple(i.shape) == (q, splits, 1)
+        assert s.dtype == torch.float32 and i.dtype == torch.int32
+    assert args[10:12] == (score.data_ptr(), idx.data_ptr())
+    assert tuple(idx.shape) == (q,) and fs.BATCH_LAUNCHES == 1
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 40, 65])
+def test_card_topk_scratch_and_count_per_pass(fake_lib, monkeypatch, k):
+    made = _recording_empty(monkeypatch)
+    n, q = 4000, 33
+    idx, score = fs.flex_score_batch_topk(*_card_inputs(n, q), k)
+    chunk, splits, _ = fs.batch_plan(n, q)
+    (name, args), = fake_lib.calls   # one C call runs every pass
+    assert name == "flex_score_batch_topk"
+    assert args[4:9] == (n, 2, q, k, chunk)
+    s, i = (next(t for t in made if t.data_ptr() == p) for p in args[9:11])
+    assert tuple(s.shape) == tuple(i.shape) == (q, splits, min(k, 32))
+    assert args[11:13] == (score.data_ptr(), idx.data_ptr())
+    assert tuple(idx.shape) == (q, k)
+    assert fs.TOPK_LAUNCHES == -(-k // 32) and fs.BATCH_LAUNCHES == 0
+
+
+def test_card_handles_are_looked_up_once(fake_lib):
+    inputs = _card_inputs(100, 5)
+    for _ in range(3):
+        fs.flex_score_batch_pick(*inputs)
+        fs.flex_score_batch_topk(*inputs, 8)
+    assert sorted(fake_lib.lookups) == sorted([
+        "flex_score_batch_pick", "flex_score_batch_topk",
+        "flex_score_batch_max_r", "flex_score_batch_pass_slots"])
+    assert len(fake_lib.calls) == 6
+    assert (fs.BATCH_LAUNCHES, fs.TOPK_LAUNCHES) == (3, 3)
+
+
+def test_card_rejects_too_many_resources_and_mixed_devices(fake_lib):
+    est, res, src, mat = _card_inputs(64, 4, r=17)
+    with pytest.raises(ValueError, match="at most 16 resources"):
+        fs.flex_score_batch_pick(est, res, src, mat)
+    with pytest.raises(ValueError, match="at most 16 resources"):
+        fs.flex_score_batch_topk(est, res, src, mat, 8)
+    est, res, src, mat = _card_inputs(64, 4)
+    with pytest.raises(ValueError, match="src_frac must be on"):
+        fs.flex_score_batch_pick(est, res, src.as_subclass(torch.Tensor), mat)
+    with pytest.raises(ValueError, match="task_mat must be on"):
+        fs.flex_score_batch_topk(est, res, src, mat.as_subclass(torch.Tensor),
+                                 8)
+    assert not fake_lib.calls
+    assert (fs.BATCH_LAUNCHES, fs.TOPK_LAUNCHES) == (0, 0)
