@@ -8,20 +8,29 @@ Phases, one line each (or a few):
   1. device: the card's name and power limit; build every CUDA kernel
      from this checkout's sources, timed, with each kernel's registers,
      shared memory and spills as ptxas reports them.
-  2. kernel against plain: the flex_score pick kernel and its plain
+  2. kernels against plain: the flex_score pick kernel and its plain
      PyTorch version on the same CUDA tensors, bit for bit, at
      N in {4000, 4097, 100000} (random, tied, all-infeasible, cap < 1 and
      best-fit tasks); times per decision at N = 4000 beside the bound.
+     Then the queue kernel (``flex_score_admit``) against
+     ``admit_queue_ref``: placements and every node-state leaf bit for
+     bit, at N in {4000, 4097, 100000} (src_count on chip, and gathered
+     from global memory) x Q in {1, 33, 4096}, on random and tied tables,
+     with the same five kinds of task and about 15% of the entries invalid;
+     times per call at N = 4000 and 100000, Q = 4096 (graph replay and
+     eager), per decision beside the bounds and the pick kernel's.
   3. the slice end to end: ``Experiment(ts, cfg, "flex-f")`` at the
-     paper's cluster scale (4000 nodes), through the kernel for 24 slots
-     and through the policy's plain hooks for the first 8; the kernel's
-     launch count must equal the decisions made, and the placements must
-     be identical.
+     paper's cluster scale (4000 nodes), through the kernels for 24 slots
+     and through the policy's plain hooks for the first 4; the queue
+     kernel must launch once per non-empty slot queue and the pick kernel
+     never, and the placements must be identical.
   4. small run against the CPU: the same replayed-noise flex-f run on the
      card and on the CPU (which the tests hold against the JAX reference).
-  5. profile: where one decision's time goes (host clock, and the
-     device's kernel time from torch.profiler), with and without the
-     kernel.
+  5. profile: one queue at N = 4000 admitted by the ``admit_one`` loop
+     (one pick launch a decision), the queue kernel and the plain hooks,
+     bit-equal; where a decision's time goes (host clock, and the device's
+     kernel time from torch.profiler); then where a slot of phase 3's
+     queue-kernel run goes (its first 3 slots under the profiler).
 
 Wavefront admission (the batched kernels), in order after phase 2 and
 after phase 3:
@@ -36,8 +45,8 @@ after phase 3:
      achieved GB/s and the earlier design's time.
   b. the wavefront study: phase 3's configuration with
      ``admission_mode="wavefront"``, its first 12 slots; placements and
-     admit slots must equal those slots of phase 3's sequential kernel
-     run, and the top-K kernel must launch once per sweep.
+     admit slots must equal those slots of phase 3's queue-kernel run,
+     and the top-K kernel must launch once per sweep.
   c. the ``wavefront_topk=0`` loop, 4 slots deep, against the first 4
      slots of phase 3's sequential run: the batched argmax kernel on a
      path.
@@ -147,6 +156,16 @@ DEDUP_Q = 64
 # beside this run's.
 BATCH_EARLIER_US = {"flex_score_batch_pick": 65.375,
                     "flex_score_batch_topk": 129.599}
+# The queue kernel's sizes in phase 2: N = 4000 and 4097 hold src_count on
+# chip, N = 100000 gathers it from global memory (admit_plan).
+QUEUE_NS = (4000, 4097, 100000)
+QUEUE_QS = (1, 33, 4096)
+# The pick kernel's time per decision at N = 4000 (graph replay), the
+# design the queue kernel replaces on the sequential path, and its bytes
+# bound per decision: PERF.md's kernel table, row 1 (PR 14's run P2,
+# NVIDIA H100 80GB HBM3, 700.00 W); logged beside this run's.
+PICK_EARLIER_US = 3.353
+PICK_BOUND_US = 0.0239
 
 
 def log(msg: str) -> None:
@@ -309,6 +328,113 @@ def kernel_vs_plain(dev) -> dict:
                 bound_ms=max(bound_bytes, bound_ops),
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                 library_ms=None)
+
+
+def _queue_state(n: int, gen: torch.Generator, dev, tied: bool):
+    """[est, reserved, requested, n_tasks, src_count] of ``n`` nodes; tied:
+    quarter steps and no history, so that many nodes score alike."""
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    est, res, req = u(n, 2) * 0.5, u(n, 2) * 0.1, u(n, 2) * 0.9
+    n_tasks, src_count = (u(n) * 8).int(), (u(n, 64) * 2).int()
+    if tied:
+        est = torch.floor(est * 8) / 8
+        res, n_tasks, src_count = (torch.zeros_like(x) for x in (
+            res, n_tasks, src_count))
+    return [est, res, req, n_tasks, src_count]
+
+
+def _queue_bound(n: int, q: int):
+    """(bound ms, what bounds it) of one queue-kernel call at R = 2: est,
+    reserved, requested, n_tasks and src_count read once (284 N bytes) and
+    the last four written once (276 N), the task rows, sources and valid
+    flags read (33 Q with the placements written); 4 R + 6 float32
+    operations per (task, node)."""
+    by_bytes = (560 * n + 33 * q) / HBM_BYTES_PER_S * 1e3
+    by_ops = 14 * q * n / FP32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def queue_kernel_vs_plain(dev, pick: dict) -> dict:
+    """The queue kernel against admit_queue_ref; ``pick`` is the pick
+    kernel's entry of the kernels' line (its time is logged beside)."""
+    from repro_torch.kernels.flex_score import flex_score as fs
+    from repro_torch.kernels.flex_score.ops import _task_mat
+    from repro_torch.kernels.flex_score.ref import admit_queue_ref
+
+    def as_bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    worst = 0.0
+    for n in QUEUE_NS:
+        rows_per_cta, on_chip, smem = fs.admit_plan(n, 2)
+        for tied in (False, True):
+            state = _queue_state(n, gen, dev, tied)
+            for q in QUEUE_QS:
+                mat = _task_mat(*_task_rows(q, gen, dev))
+                srcs = (torch.rand(q, generator=gen, device=dev)
+                        * (8 if tied else 64)).int()
+                valid = torch.rand(q, generator=gen, device=dev) < 0.85
+                got, want = ([x.clone() for x in state] for _ in range(2))
+                k_pl = fs.flex_score_admit(*got, mat, srcs, valid)
+                p_pl = admit_queue_ref(*want, mat, srcs, valid)
+                torch.cuda.synchronize()
+                what = f"flex_score_admit N={n} Q={q} tied={tied}"
+                if not torch.equal(k_pl, p_pl):
+                    bad = (k_pl != p_pl).nonzero()[:5].flatten().tolist()
+                    raise AssertionError(f"{what}: kernel and plain place "
+                                         f"differently at tasks {bad}")
+                for name, a, b in zip(("est_usage", "reserved", "requested",
+                                       "n_tasks", "src_count"), got, want):
+                    if not torch.equal(as_bits(a), as_bits(b)):
+                        raise AssertionError(f"{what}: {name} differs")
+                    if a.dtype == torch.float32:
+                        worst = max(worst, float((a - b).abs().max()))
+                log(f"[queue] {what}: placements and every node-state leaf "
+                    f"bit-equal to admit_queue_ref ({int((k_pl >= 0).sum())}"
+                    f" placed, {int((~valid).sum())} invalid; {rows_per_cta}"
+                    f" rows a CTA, src_count "
+                    f"{'on chip' if on_chip else 'in global memory'}, "
+                    f"{smem} B of shared memory)")
+
+    out = None
+    q = QUEUE
+    for n in (FULL["n_nodes"], QUEUE_NS[-1]):
+        state = _queue_state(n, gen, dev, tied=False)
+        mat = _task_mat(*_task_rows(q, gen, dev))
+        srcs = (torch.rand(q, generator=gen, device=dev) * 64).int()
+        valid = torch.rand(q, generator=gen, device=dev) < 0.85
+        # Each timed call admits the queue into the state the call before
+        # left: the work of a decision (a pass over the table, the
+        # exchange, a commit) does not depend on the data.
+        kernel = lambda: fs.flex_score_admit(*state, mat, srcs, valid)
+        ms = _median_ms(kernel, reps=10, inner=2)
+        eager = _event_ms(kernel, reps=10)
+        bound_ms, bound_by = _queue_bound(n, q)
+        log(f"[queue] flex_score_admit N={n} Q={q}: {ms:.4f} ms per call "
+            f"(graph replay), {eager:.4f} ms eager = {ms * 1e3 / q:.4f} / "
+            f"{eager * 1e3 / q:.4f} us per decision; bound "
+            f"{bound_ms * 1e3:.3f} us per call ({bound_by}), "
+            f"{bound_ms / ms:.5f} of it replayed")
+        if n != FULL["n_nodes"]:
+            continue
+        plain = lambda: admit_queue_ref(*[x.clone() for x in state], mat,
+                                        srcs, valid)
+        plain_ms = _event_ms(plain, reps=1)
+        log(f"[queue] flex_score_admit N={n} Q={q}: per decision "
+            f"{ms * 1e3 / q:.4f} us replayed against the pick kernel's "
+            f"{pick['ms'] * 1e3:.4f} us in this run (earlier design, "
+            f"{PICK_EARLIER_US} us in PERF.md's run P2) and its bytes bound "
+            f"of {PICK_BOUND_US} us; plain {plain_ms:.1f} ms per call")
+        out = dict(name="flex_score_admit", route="cuda",
+                   source="src/repro_torch/kernels/flex_score/csrc/"
+                          "flex_score_admit.cu",
+                   replaces="src/repro/kernels/flex_score/flex_score.py:40",
+                   launches=0, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -552,8 +678,9 @@ def _same_decisions(what: str, res, ref, n_slots=None) -> None:
 
 
 def slice_end_to_end(dev):
-    """Phase 3; returns (launches of the kernel run, the trace, the kernel
-    run's result).  The plain path runs the first PLAIN_SLOTS slots."""
+    """Phase 3; returns (the queue kernel's launches in the kernel run, the
+    trace, the kernel run's result).  The plain path runs the first
+    PLAIN_SLOTS slots."""
     from repro_torch.api import Experiment, admission
     from repro_torch.core import SimConfig
     from repro_torch.kernels.flex_score import flex_score as fs
@@ -580,28 +707,32 @@ def slice_end_to_end(dev):
         res = exp.run(seeds=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, decisions = fs.LAUNCHES, admission.DECISIONS
+        c = _counts()
         _check_result(res, run_cfg, ts.num_tasks)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             summary = analysis.summarize(ts, res, 0.99)
-        runs[use_kernel] = (res, launches, decisions, wall)
+        runs[use_kernel] = (res, c)
         log(f"[slice] flex-f use_kernel={use_kernel}, {run_cfg.n_slots} "
-            f"slots: {decisions} decisions in {wall:.2f} s = "
-            f"{decisions / wall:.1f} decisions/s, {launches} flex_score "
-            f"launches")
+            f"slots: {c['decisions']} decisions in {wall:.2f} s = "
+            f"{c['decisions'] / wall:.1f} decisions/s "
+            f"({wall * 1e6 / c['decisions']:.2f} us each); {c['queue']} "
+            f"flex_score_admit launches for {c['queues']} non-empty slot "
+            f"queues, {c['pick']} flex_score_pick launches")
         log(f"[slice] summary use_kernel={use_kernel}: "
             + json.dumps(summary, sort_keys=True))
-    res_k, launches, decisions, _ = runs[True]
-    if decisions == 0 or launches != decisions:
-        raise AssertionError(f"flex_score launched {launches} times for "
-                             f"{decisions} decisions")
-    if runs[False][1] != 0:
-        raise AssertionError("the plain path launched the kernel")
+    res_k, c = runs[True]
+    if c["decisions"] == 0 or c["queues"] == 0 or c["queue"] != c["queues"]:
+        raise AssertionError(f"flex_score_admit launched {c['queue']} times "
+                             f"for {c['queues']} non-empty slot queues")
+    if c["pick"] or c["batch"] or c["topk"]:
+        raise AssertionError("the queue-kernel run launched another kernel")
+    if any(runs[False][1][k] for k in ("queue", "pick", "batch", "topk")):
+        raise AssertionError("the plain path launched a kernel")
     _same_decisions("use_kernel=False", runs[False][0], res_k, PLAIN_SLOTS)
     log(f"[slice] the plain path's placements and admit slots equal the "
         f"kernel run's first {PLAIN_SLOTS} slots")
-    return {"flex_score_pick": launches}, ts, res_k
+    return {"flex_score_admit": c["queue"]}, ts, res_k
 
 
 # ---------------------------------------------------------------------------
@@ -611,8 +742,9 @@ def slice_end_to_end(dev):
 def _counts() -> dict:
     from repro_torch.api import admission
     from repro_torch.kernels.flex_score import flex_score as fs
-    return dict(pick=fs.LAUNCHES, batch=fs.BATCH_LAUNCHES,
-                topk=fs.TOPK_LAUNCHES, decisions=admission.DECISIONS,
+    return dict(pick=fs.LAUNCHES, queue=fs.QUEUE_LAUNCHES,
+                batch=fs.BATCH_LAUNCHES, topk=fs.TOPK_LAUNCHES,
+                decisions=admission.DECISIONS, queues=admission.QUEUES,
                 rounds=admission.ROUNDS, sweeps=admission.SWEEPS,
                 dedup_sweeps=admission.DEDUP_SWEEPS)
 
@@ -657,7 +789,7 @@ def wavefront_study(dev, ts, res_seq) -> int:
     if c["sweeps"] == 0 or c["topk"] != c["sweeps"]:
         raise AssertionError(f"top-K kernel launched {c['topk']} times for "
                              f"{c['sweeps']} sweeps")
-    if c["pick"] or c["batch"]:
+    if c["pick"] or c["queue"] or c["batch"]:
         raise AssertionError("the wavefront study launched another kernel")
     _same_decisions("wavefront study", res, res_seq, WAVE_SLOTS)
     with warnings.catch_warnings():
@@ -665,7 +797,7 @@ def wavefront_study(dev, ts, res_seq) -> int:
         summary = analysis.summarize(ts, res, 0.99)
     log("[wave] summary: " + json.dumps(summary, sort_keys=True))
     log(f"[wave] placements and admit slots identical to the sequential "
-        f"kernel run's first {WAVE_SLOTS} slots")
+        f"queue-kernel run's first {WAVE_SLOTS} slots")
     return c["topk"]
 
 
@@ -687,7 +819,7 @@ def topk0_loop(dev, ts, res_seq, n_slots: int = 4) -> int:
     if c["sweeps"] == 0 or not c["batch"] == c["sweeps"] == c["rounds"]:
         raise AssertionError("the topk=0 loop must launch the argmax kernel "
                              "once per round")
-    if c["topk"] or c["pick"]:
+    if c["topk"] or c["pick"] or c["queue"]:
         raise AssertionError("the topk=0 loop launched another kernel")
     _same_decisions("wavefront_topk=0", res, res_seq, n_slots)
     log(f"[topk0] placements and admit slots equal the sequential kernel "
@@ -732,9 +864,13 @@ def dedup_queue(dev, shapes: int = 64) -> None:
             use_kernel=True, batch_mode=batch_mode)
         torch.cuda.synchronize()
         out[batch_mode] += (time.perf_counter() - t0, _counts())
-    (ns_s, pl_s, t_s, _), (ns_w, pl_w, t_w, c) = out[False], out[True]
+    (ns_s, pl_s, t_s, c_s), (ns_w, pl_w, t_w, c) = out[False], out[True]
+    if c_s["queue"] != 1 or c_s["pick"]:
+        raise AssertionError("the sequential dedup queue did not go through "
+                             "one launch of the queue kernel")
     log(f"[dedup] flex-f Q={q} ({shapes} distinct rows) N={FULL['n_nodes']}: "
-        f"sequential {t_s:.2f} s, wavefront {t_w:.2f} s; {c['rounds']} "
+        f"sequential (queue kernel) {t_s * 1e3:.2f} ms, wavefront "
+        f"{t_w:.2f} s; {c['rounds']} "
         f"rounds, {c['sweeps']} sweeps, {c['dedup_sweeps']} deduplicated; "
         f"{int((pl_w >= 0).sum())} placed")
     if c["sweeps"] == 0 or c["dedup_sweeps"] != c["sweeps"]:
@@ -803,23 +939,22 @@ def profile_wavefront(dev) -> None:
             f"{e.self_device_time_total / 1e3:.3f} ms")
 
 
-def profile_decisions(dev, decisions: int = 256) -> None:
-    """Where a decision's time goes: one queue admitted at N = 4000,
-    timed untraced on the host clock, then traced by torch.profiler for
-    the device's kernel time and the kernels launched per decision."""
+def profile_decisions(dev, decisions: int = 512) -> int:
+    """Phase 5: one queue at N = 4000 admitted three ways, the ``admit_one``
+    loop (a pick launch a decision), the queue kernel (``admit_queue``,
+    one launch) and the policy's plain hooks; all three bit-equal.  Each
+    is timed untraced on the host clock, then traced by torch.profiler for
+    the device's kernel time and the kernels launched per decision.
+    Returns the pick kernel's launches in the ``admit_one`` loop's
+    untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import admission, get_policy
     from repro_torch.core.types import FlexParams, NodeState
+    from repro_torch.kernels.flex_score import flex_score as fs
 
     n = FULL["n_nodes"]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
-    node = NodeState.zeros(n, device=dev)._replace(
-        est_usage=u(n, 2) * 0.5, requested=u(n, 2) * 0.9,
-        n_tasks=(u(n) * 8).to(torch.int32),
-        src_count=(u(n, 64) * 2).to(torch.int32))
+    node, u = _node_table(n, 1, dev)
     reqs = u(decisions, 2) * 0.1
     srcs = (u(decisions) * 64).to(torch.int32)
     prios = (u(decisions) * 3).to(torch.int32)
@@ -827,36 +962,126 @@ def profile_decisions(dev, decisions: int = 256) -> None:
     params = FlexParams.default(device=dev)
     penalty = torch.full((), 1.2, device=dev)
     policy = get_policy("flex-f")
-    for use_kernel in (True, False):
-        admit = lambda: admission.admit_queue(
+
+    def admit_one_loop():
+        ns = NodeState(*(x.clone() for x in node))
+        out = []
+        for k in range(decisions):
+            ctx = admission.PolicyContext(node=ns, penalty=penalty,
+                                          params=params)
+            ns, idx = admission.admit_one(
+                policy, ctx, admission.TaskView(reqs[k], srcs[k], prios[k]),
+                valid[k], use_kernel=True)
+            out.append(idx)
+        return ns, torch.stack(out)
+
+    paths = {
+        "admit_one loop": admit_one_loop,
+        "queue kernel": lambda: admission.admit_queue(
             policy, node, reqs, srcs, prios, valid, penalty, params,
-            use_kernel=use_kernel)
+            use_kernel=True),
+        "plain hooks": lambda: admission.admit_queue(
+            policy, node, reqs, srcs, prios, valid, penalty, params),
+    }
+    results, pick_launches = {}, 0
+    for name, admit in paths.items():
+        # The queue kernel's path is a few hundred microseconds: profiled
+        # over more calls.
+        reps = 8 if name == "queue kernel" else 1
         admit()
-        torch.cuda.synchronize()
+        _reset_counts()
         t0 = time.perf_counter()
-        admit()
+        results[name] = admit()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / decisions
+        c = _counts()
+        if name == "admit_one loop":
+            pick_launches = c["pick"]
+            if c["pick"] != decisions or c["queue"]:
+                raise AssertionError(f"the admit_one loop launched the pick "
+                                     f"kernel {c['pick']} times for "
+                                     f"{decisions} decisions")
+        elif name == "queue kernel" and (c["queue"] != 1 or c["pick"]):
+            raise AssertionError("the queue did not go through one launch of "
+                                 "the queue kernel")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            admit()
+            for _ in range(reps):
+                admit()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA")]
-        busy_us = sum(e.self_device_time_total for e in kernels) / decisions
-        count = sum(e.count for e in kernels) / decisions
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        per = decisions * reps
+        busy_us = sum(e.self_device_time_total for e in kernels) / per
+        count = sum(e.count for e in kernels) / per
         if busy_us == 0:
-            log(f"[profile] use_kernel={use_kernel}: {wall_us:.1f} us per "
-                f"decision; device time not visible to the profiler")
+            span_us = _event_ms(admit, reps=5) * 1e3 / decisions
+            log(f"[profile] {name}: {wall_us:.3f} us per decision; device "
+                f"time not visible to the profiler; {span_us:.3f} us per "
+                f"decision between CUDA events around the call")
             continue
-        log(f"[profile] flex-f admit_queue N={n}, {decisions} decisions, "
-            f"use_kernel={use_kernel}: {wall_us:.1f} us per decision "
-            f"untraced; device busy {busy_us:.2f} us per decision in "
-            f"{count:.1f} kernels (idle share {1 - busy_us / wall_us:.4f})")
+        log(f"[profile] flex-f N={n}, {decisions} decisions, {name}: "
+            f"{wall_us:.3f} us per decision untraced; device busy "
+            f"{busy_us:.3f} us per decision in {count:.4f} kernels (idle "
+            f"share {1 - busy_us / wall_us:.4f})")
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
         for e in top:
-            log(f"[profile]   {e.key[:60]}: {e.count / decisions:.1f} per "
+            log(f"[profile]   {e.key[:60]}: {e.count / per:.4f} per "
                 f"decision, {e.self_device_time_total / e.count:.2f} us each")
+    (ns_ref, pl_ref) = results["admit_one loop"]
+    for name in ("queue kernel", "plain hooks"):
+        ns, pl = results[name]
+        if not torch.equal(pl, pl_ref):
+            raise AssertionError(f"phase 5: the {name}'s placements differ "
+                                 f"from the admit_one loop's")
+        for field in ns._fields:
+            a, b = getattr(ns, field), getattr(ns_ref, field)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 5: the {name}'s {field} differs "
+                                     f"from the admit_one loop's")
+    log(f"[profile] the three paths' placements and node states are "
+        f"bit-equal ({int((pl_ref >= 0).sum())} of {decisions} placed)")
+    return pick_launches
+
+
+def profile_study(dev, ts, n_slots: int = 3) -> None:
+    """Phase 5 (study): where a slot of phase 3's queue-kernel run goes, its
+    first ``n_slots`` slots timed untraced, then under torch.profiler: the
+    device's busy time and its largest kernels, and the host's wait at
+    the slot's one sync."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Experiment
+    from repro_torch.core import SimConfig
+
+    cfg = SimConfig(**FULL, use_kernel=True)._replace(n_slots=n_slots)
+    exp = Experiment(ts, cfg, "flex-f", device=dev)
+    exp.run(seeds=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp.run(seeds=0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_slots
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exp.run(seeds=0)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_slots
+    sync_ms = sum(e.self_cpu_time_total for e in events
+                  if e.key == "cudaStreamSynchronize") / 1e3 / n_slots
+    log(f"[study] flex-f sequential (queue kernel) N={cfg.n_nodes}, first "
+        f"{n_slots} slots: {wall_ms:.2f} ms per slot untraced; device busy "
+        f"{busy_ms:.2f} ms per slot in "
+        f"{sum(e.count for e in kernels) / n_slots:.1f} kernels (idle share "
+        f"{1 - busy_ms / wall_ms:.4f}); the host waits {sync_ms:.2f} ms per "
+        f"slot at its syncs")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"[study]   {e.key[:60]}: {e.count / n_slots:.1f} per slot, "
+            f"{e.self_device_time_total / 1e3 / n_slots:.3f} ms per slot")
 
 
 # ---------------------------------------------------------------------------
@@ -1694,7 +1919,8 @@ def main() -> int:
         log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    kernels = [timed("2", kernel_vs_plain),
+    pick = timed("2", kernel_vs_plain)
+    kernels = [pick, timed("2 (queue kernel)", queue_kernel_vs_plain, pick),
                *timed("a", batch_kernels_vs_plain),
                timed("g", flash_vs_plain),
                timed("k", ssd_vs_plain)]
@@ -1706,7 +1932,8 @@ def main() -> int:
     timed("d", dedup_queue)
     timed("4", small_run_against_cpu, "sequential")
     timed("e", small_run_against_cpu, "wavefront")
-    timed("5", profile_decisions)
+    launches["flex_score_pick"] = timed("5", profile_decisions)
+    timed("5 (study)", profile_study, ts)
     timed("f", profile_wavefront)
     launches["flash_attention"], serve_runs = timed("h", serve_end_to_end)
     timed("i", prefill_vs_decode)

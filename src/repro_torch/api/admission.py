@@ -5,10 +5,12 @@ decision identical:
 
   * sequential: one decision is a filter + score + argmax over the node
     table (``pick_node``) followed by O(1) masked scatters
-    (``admit_one``); a queue is admitted in order by a Python loop.
-    Nothing inside a decision waits for the device: the chosen index stays
-    a tensor, and a decision whose task is invalid or fits nowhere commits
-    zeros;
+    (``admit_one``).  A policy with the ``queue_kernel_rows`` hook and
+    ``use_kernel`` has its whole queue admitted in order by one call of
+    the queue kernel (``kernels.flex_score.flex_admit_queue``); any other
+    by a Python loop over ``admit_one``.  Nothing inside a decision waits
+    for the device: the chosen index stays a tensor, and a decision whose
+    task is invalid or fits nowhere commits zeros;
   * wavefront (``admit_queue_wavefront``): the whole queue is scored per
     node-table sweep by the batched kernels, and conflict-resolution
     rounds commit the longest provably safe prefix of pending tasks.  The
@@ -25,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.numerics import fma
-from repro_torch.core.types import NUM_SRC_BUCKETS, FlexParams, NodeState
+from repro_torch.core.types import FlexParams, NodeState
+from repro_torch.kernels.flex_score.ref import commit_one
 
 # Score of an infeasible node; equal to the kernel's sentinel
 # (repro_torch.kernels.flex_score.ref.NEG_INF).
@@ -35,18 +38,19 @@ NEG_INF = -1e30
 # capacity or oversubscription factor, so every capacity filter rejects it.
 DRAIN_LOAD = 1e6
 
-# Decisions made by admit_queue, one per queue entry it was given; and the
-# commit rounds, node-table sweeps and deduplicated sweeps of wavefront
-# admission.
+# Decisions made by admit_queue, one per queue entry it was given, and the
+# non-empty queues it was given; and the commit rounds, node-table sweeps
+# and deduplicated sweeps of wavefront admission.
 DECISIONS = 0
+QUEUES = 0
 ROUNDS = 0
 SWEEPS = 0
 DEDUP_SWEEPS = 0
 
 
 def reset_decisions() -> None:
-    global DECISIONS, ROUNDS, SWEEPS, DEDUP_SWEEPS
-    DECISIONS = ROUNDS = SWEEPS = DEDUP_SWEEPS = 0
+    global DECISIONS, QUEUES, ROUNDS, SWEEPS, DEDUP_SWEEPS
+    DECISIONS = QUEUES = ROUNDS = SWEEPS = DEDUP_SWEEPS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -164,14 +168,8 @@ def admit_one(policy, ctx: PolicyContext, task: TaskView,
     ok = any_feasible & valid
     idx = torch.where(ok, cand, -1).to(torch.int32)
 
-    i = torch.clamp(idx, min=0).reshape(1)
-    add_f = (ok.to(torch.float32) * task.request).reshape(1, -1)
-    add_i = ok.to(torch.int32).reshape(1)
-    node.reserved.index_add_(0, i, add_f)
-    node.requested.index_add_(0, i, add_f)
-    node.n_tasks.index_add_(0, i, add_i)
-    node.src_count.view(-1).index_add_(
-        0, i * NUM_SRC_BUCKETS + task.src.reshape(1), add_i)
+    commit_one(node.reserved, node.requested, node.n_tasks, node.src_count,
+               idx, ok, task.request, task.src)
     return node, idx
 
 
@@ -185,9 +183,13 @@ def admit_queue(policy, node: NodeState, requests, srcs, priorities,
     requests (Q, R); srcs/priorities/valid (Q,).  Two execution shapes,
     decision for decision identical:
 
-      * sequential (default): one decision per entry; with ``use_kernel``
-        each is one call of the fused kernel (policies without the
-        ``kernel_inputs`` hook keep their plain hooks);
+      * sequential (default): one decision per entry.  With
+        ``use_kernel``, a policy with the ``queue_kernel_rows`` hook (the
+        Flex template with the same-source share) has the whole queue
+        admitted by one call of ``flex_admit_queue``: the queue kernel on
+        the card, its plain version on the CPU.  Other policies with the
+        ``kernel_inputs`` hook make each decision with one call of the
+        fused pick; policies with neither keep their plain hooks;
       * ``batch_mode=True``: wavefront rounds over the batched kernels
         (:func:`admit_queue_wavefront`) for kernel-hooked policies, which
         ``topk``, ``dedup_buckets`` and ``tie_margin`` tune.  Policies
@@ -195,8 +197,9 @@ def admit_queue(policy, node: NodeState, requests, srcs, priorities,
 
     Returns (NodeState, placements (Q,) i32, node index or -1).
     """
-    global DECISIONS
+    global DECISIONS, QUEUES
     q = requests.shape[0]
+    QUEUES += int(q > 0)
     if batch_mode and getattr(policy, "kernel_inputs", None) is not None:
         out = admit_queue_wavefront(policy, node, requests, srcs, priorities,
                                     valid, penalty, params, topk=topk,
@@ -204,7 +207,21 @@ def admit_queue(policy, node: NodeState, requests, srcs, priorities,
                                     tie_margin=tie_margin)
         DECISIONS += q
         return out
-    node = NodeState(*(x.clone() for x in node))
+    # Contiguous copies: the queue kernel updates them in place.
+    node = NodeState(*(x.clone(memory_format=torch.contiguous_format)
+                       for x in node))
+    queue_rows = getattr(policy, "queue_kernel_rows", None)
+    if use_kernel and queue_rows is not None:
+        from repro_torch.kernels.flex_score.ops import flex_admit_queue
+
+        ctx = PolicyContext(node=node, penalty=penalty, params=params)
+        rows = queue_rows(ctx, TaskView(requests, srcs, priorities))
+        placements = flex_admit_queue(
+            node.est_usage, node.reserved, node.requested, node.n_tasks,
+            node.src_count, rows, srcs.to(torch.int32).contiguous(),
+            valid.to(torch.bool).contiguous())
+        DECISIONS += q
+        return node, placements
     out = []
     for k in range(q):
         ctx = PolicyContext(node=node, penalty=penalty, params=params)

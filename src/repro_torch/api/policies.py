@@ -22,14 +22,14 @@ from repro_torch.core.types import (
     ControllerState,
     FlexParams,
 )
+from repro_torch.kernels.flex_score.ref import src_share
 
 
 def _flex_src_frac(ctx: PolicyContext, task: TaskView) -> torch.Tensor:
     """Fraction of each node's tasks sharing the incoming task's source
-    (same-source tasks tend to peak together, §4.3)."""
-    node = ctx.node
-    same = node.src_count.index_select(1, task.src.reshape(1)).squeeze(1)
-    return same.float() / torch.clamp(node.n_tasks, min=1).float()
+    (same-source tasks tend to peak together, §4.3); the queue kernel
+    computes the same share itself."""
+    return src_share(ctx.node.n_tasks, ctx.node.src_count, task.src)
 
 
 def _pin_theta(policy, params: FlexParams) -> FlexParams:
@@ -104,19 +104,42 @@ class FlexFifoPolicy:
         return -fma(ctx.params.w_load, load_term,
                     ctx.params.w_src * _flex_src_frac(ctx, task))
 
+    def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
+        """(penalty, cap, w_load, w_src) of the kernel template for one
+        task, or for a queue of them (then broadcastable to (Q,)); the one
+        place both kernel hooks take them from."""
+        return (ctx.penalty, torch.ones_like(ctx.penalty), ctx.params.w_load,
+                ctx.params.w_src)
+
     def kernel_inputs(self, ctx: PolicyContext,
                       task: TaskView) -> admission.KernelInputs:
         """Kernel mapping of the ULB filter + Flex score; equal to
         feasible + score."""
+        penalty, cap, w_load, w_src = self._kernel_scalars(ctx, task)
         return admission.KernelInputs(
             est_usage=ctx.node.est_usage,
             reserved=ctx.node.reserved,
             src_frac=_flex_src_frac(ctx, task),
-            penalty=ctx.penalty,
-            cap=torch.ones_like(ctx.penalty),
-            w_load=ctx.params.w_load,
-            w_src=ctx.params.w_src,
-        )
+            penalty=penalty, cap=cap, w_load=w_load, w_src=w_src)
+
+    def queue_kernel_rows(self, ctx: PolicyContext,
+                          tasks: TaskView) -> torch.Tensor:
+        """The queue kernel's (Q, R + 4) task rows ``[r..., penalty, cap,
+        w_load, w_src]`` for a queue of tasks (``tasks`` leaves lead with
+        Q), in one pass.
+
+        Defining this hook declares that the policy's ``kernel_inputs``
+        are the Flex template over the node state with ``src_frac`` the
+        same-source share ``src_count[:, src] / max(n_tasks, 1)``, which
+        the queue kernel computes itself from the state each earlier
+        decision left.  Row q equals ``kernel_inputs`` of task q.
+        """
+        q = tasks.request.shape[0]
+        cols = [torch.as_tensor(x, dtype=torch.float32,
+                                device=tasks.request.device).expand(q)[:, None]
+                for x in self._kernel_scalars(ctx, tasks)]
+        return torch.cat([tasks.request.to(torch.float32), *cols],
+                         dim=1).contiguous()
 
 
 @register_policy("flex-l")
@@ -142,13 +165,12 @@ class BestFitUsagePolicy(FlexFifoPolicy):
     def score(self, ctx: PolicyContext, task: TaskView) -> torch.Tensor:
         return admission.dominant(self._load(ctx))
 
-    def kernel_inputs(self, ctx: PolicyContext,
-                      task: TaskView) -> admission.KernelInputs:
+    def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
         # -(w_load * max(load) + w_src * src) with w_load = -1, w_src = 0
         # is +dominant(load): best fit.
-        return super().kernel_inputs(ctx, task)._replace(
-            w_load=torch.full_like(ctx.penalty, -1.0),
-            w_src=torch.zeros_like(ctx.penalty))
+        penalty, cap, _, _ = super()._kernel_scalars(ctx, task)
+        return (penalty, cap, torch.full_like(ctx.penalty, -1.0),
+                torch.zeros_like(ctx.penalty))
 
 
 @register_policy("flex-priority")
@@ -167,9 +189,9 @@ class PriorityFlexPolicy(FlexFifoPolicy):
         return torch.where(task.priority >= CLASS_PRODUCTION, 1.0,
                            1.0 - self.headroom).to(torch.float32)
 
-    def kernel_inputs(self, ctx: PolicyContext,
-                      task: TaskView) -> admission.KernelInputs:
-        return super().kernel_inputs(ctx, task)._replace(cap=self._cap(task))
+    def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
+        penalty, _, w_load, w_src = super()._kernel_scalars(ctx, task)
+        return penalty, self._cap(task), w_load, w_src
 
     def queue_order(self, requests: torch.Tensor, priorities: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,9 @@ Optional policy hooks, checked by attribute:
 * ``default_theta``: theta used when the caller passes no params.
 * ``kernel_inputs(ctx, task) -> KernelInputs``: opt in to the fused
   filter+score kernel.  It must equal ``feasible`` + ``score``.
+* ``queue_kernel_rows(ctx, tasks) -> (Q, R + 4)``: opt in to the queue
+  kernel, which admits a whole sequential queue in one launch; declares
+  that ``kernel_inputs``' ``src_frac`` is the Flex same-source share.
 """
 from __future__ import annotations
 

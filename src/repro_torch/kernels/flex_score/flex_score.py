@@ -1,14 +1,17 @@
 """Launch wrappers of the hand-written CUDA kernels under ``csrc/``.
 
 ``flex_score_pick`` (``csrc/flex_score.cu``) makes one decision;
+``flex_score_admit`` (``csrc/flex_score_admit.cu``) admits a whole queue
+in order, decision after decision, in one launch;
 ``flex_score_batch_pick`` and ``flex_score_batch_topk``
 (``csrc/flex_score_batch.cu``) score a whole queue.  Each checks its
 tensors, allocates the outputs (and the batched kernels' scratch, see
 :func:`batch_plan`), launches on the current stream and raises if a launch
-fails.  None waits for the device.  ``LAUNCHES``, ``BATCH_LAUNCHES`` and
-``TOPK_LAUNCHES`` count the kernel launches of each, so a run can show
-that its decisions went through the kernels: one per call of the argmax
-and one per top-K pass, the merge kernel of a split sweep included.
+fails.  None waits for the device.  ``LAUNCHES``, ``QUEUE_LAUNCHES``,
+``BATCH_LAUNCHES`` and ``TOPK_LAUNCHES`` count the kernel launches of
+each, so a run can show that its decisions went through the kernels: one
+per call of the pick, of the queue kernel and of the argmax, and one per
+top-K pass, the merge kernel of a split sweep included.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = 0
+QUEUE_LAUNCHES = 0
 BATCH_LAUNCHES = 0
 TOPK_LAUNCHES = 0
 
@@ -27,8 +31,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 def reset_launches() -> None:
-    global LAUNCHES, BATCH_LAUNCHES, TOPK_LAUNCHES
-    LAUNCHES = BATCH_LAUNCHES = TOPK_LAUNCHES = 0
+    global LAUNCHES, QUEUE_LAUNCHES, BATCH_LAUNCHES, TOPK_LAUNCHES
+    LAUNCHES = QUEUE_LAUNCHES = BATCH_LAUNCHES = TOPK_LAUNCHES = 0
 
 
 def _declare(fn, argtypes):
@@ -138,6 +142,122 @@ def flex_score_pick(est: torch.Tensor, reserved: torch.Tensor,
     global LAUNCHES
     LAUNCHES += 1
     return idx, score
+
+
+# The queue kernel's plan (csrc/flex_score_admit.cu): one cluster of
+# ADMIT_CLUSTER CTAs, each holding ceil(N / ADMIT_CLUSTER) node rows in its
+# shared memory for the whole queue: est and reserved (8 R bytes a node)
+# and n_tasks (4), plus the node's SRC_BUCKETS src_count entries (256) where
+# they fit in ADMIT_SMEM beside ADMIT_FIXED_SMEM bytes of the kernel's own.
+ADMIT_CLUSTER = 16
+ADMIT_MAX_R = 8
+ADMIT_SMEM = 232448       # shared memory an H100 block may opt in to
+ADMIT_FIXED_SMEM = 640
+SRC_BUCKETS = 64          # repro_torch.core.types.NUM_SRC_BUCKETS
+_ERR_SHAPE, _ERR_CLUSTER = -1, -2
+
+
+def admit_plan(n: int, r: int):
+    """(rows, src_on_chip, smem) of the queue kernel over ``n`` nodes with
+    ``r`` resources: node rows per CTA, whether src_count is held in
+    shared memory (else gathered from global memory), and each CTA's
+    shared memory in bytes.  Raises ValueError where even the rows of est,
+    reserved and n_tasks do not fit."""
+    rows = -(-n // ADMIT_CLUSTER)
+    table = 8 * r + 4
+    on_chip = (ADMIT_FIXED_SMEM + rows * (table + 4 * SRC_BUCKETS)
+               <= ADMIT_SMEM)
+    smem = ADMIT_FIXED_SMEM + rows * (table
+                                      + (4 * SRC_BUCKETS if on_chip else 0))
+    if smem > ADMIT_SMEM:
+        limit = (ADMIT_SMEM - ADMIT_FIXED_SMEM) // table * ADMIT_CLUSTER
+        raise ValueError(
+            f"flex_score_admit: at most {limit} nodes at R = {r} (the node "
+            f"table lives in the shared memory of {ADMIT_CLUSTER} CTAs), "
+            f"got {n}")
+    return rows, on_chip, smem
+
+
+_ADMIT = {}
+
+
+def _admit_fn():
+    """The queue kernel's entry point, looked up once per loaded library,
+    after checking that the library was built with this plan's
+    constants."""
+    lib = _build.load("flex_score_admit")
+    fn = _ADMIT.get(lib)
+    if fn is None:
+        built = (lib.flex_score_admit_cluster(), lib.flex_score_admit_max_r())
+        want = (ADMIT_CLUSTER, ADMIT_MAX_R)
+        if built != want:
+            raise RuntimeError(f"flex_score_admit: the library's (cluster, "
+                               f"max R) {built} differ from the launcher's "
+                               f"{want}")
+        fn = _ADMIT[lib] = _declare(lib.flex_score_admit,
+                                    [_PTR] * 8 + [_INT] * 6 + [_PTR] * 2)
+    return fn
+
+
+def flex_score_admit(est: torch.Tensor, reserved: torch.Tensor,
+                     requested: torch.Tensor, n_tasks: torch.Tensor,
+                     src_count: torch.Tensor, task_mat: torch.Tensor,
+                     srcs: torch.Tensor, valid: torch.Tensor):
+    """A whole queue admitted in order on the card, in one launch.
+
+    est (N, R) f32, read only; reserved and requested (N, R) f32, n_tasks
+    (N,) i32 and src_count (N, 64) i32, updated IN PLACE; task_mat (Q,
+    R + 4) f32, row q packed ``[r..., penalty, cap, w_load, w_src]``; srcs
+    (Q,) i32 in [0, 64) (the kernel clamps others); valid (Q,) bool; all
+    contiguous on one CUDA device.  Each decision's src_frac is the Flex
+    same-source share ``src_count[:, src] / max(n_tasks, 1)`` of the state
+    the earlier decisions left.  Returns placements (Q,) i32, a node or
+    -1.  A call with Q > 0 counts one launch in ``QUEUE_LAUNCHES``.
+    """
+    caller = "flex_score_admit"
+    if est.dim() != 2 or task_mat.dim() != 2:
+        raise ValueError(f"{caller}: est must be (N, R) and task_mat "
+                         f"(Q, R + 4), got {tuple(est.shape)} and "
+                         f"{tuple(task_mat.shape)}")
+    n, r = est.shape
+    q = task_mat.shape[0]
+    device = est.device
+    for name, t, shape, dtype in (
+            ("est", est, (n, r), torch.float32),
+            ("reserved", reserved, (n, r), torch.float32),
+            ("requested", requested, (n, r), torch.float32),
+            ("n_tasks", n_tasks, (n,), torch.int32),
+            ("src_count", src_count, (n, SRC_BUCKETS), torch.int32),
+            ("task_mat", task_mat, (q, r + 4), torch.float32),
+            ("srcs", srcs, (q,), torch.int32),
+            ("valid", valid, (q,), torch.bool)):
+        _check(caller, name, t, shape, dtype, device)
+    if r > ADMIT_MAX_R:
+        raise ValueError(f"{caller}: at most {ADMIT_MAX_R} resources, "
+                         f"got {r}")
+    if n == 0:
+        raise ValueError(f"{caller}: the node table is empty")
+    rows, on_chip, smem = admit_plan(n, r)
+    placements = torch.empty(q, dtype=torch.int32, device=device)
+    if q == 0:
+        return placements
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _admit_fn()(
+        est.data_ptr(), reserved.data_ptr(), requested.data_ptr(),
+        n_tasks.data_ptr(), src_count.data_ptr(), task_mat.data_ptr(),
+        srcs.data_ptr(), valid.data_ptr(), n, r, q, rows, int(on_chip), smem,
+        placements.data_ptr(), stream)
+    if err == _ERR_CLUSTER:
+        raise RuntimeError(f"{caller}: a cluster of {ADMIT_CLUSTER} CTAs "
+                           f"with {smem} bytes of shared memory each cannot "
+                           f"be scheduled on this card")
+    if err == _ERR_SHAPE:
+        raise RuntimeError(f"{caller}: the kernel does not take the plan "
+                           f"(rows={rows}, on_chip={on_chip}, smem={smem})")
+    _raise_on(caller, err)
+    global QUEUE_LAUNCHES
+    QUEUE_LAUNCHES += 1
+    return placements
 
 
 def _scratch(q, splits, slots, device):

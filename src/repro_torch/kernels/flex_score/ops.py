@@ -1,10 +1,11 @@
 """Public wrappers: Flex placement decisions over the node table.
 
-The kernel/policy boundary.  ``flex_pick_node`` makes one decision (the
-sequential scan, ``repro_torch.api.admission.pick_node``);
-``flex_pick_node_batch`` (each task's argmax) and
-``flex_pick_node_batch_topk`` (each task's k best nodes) score a whole
-queue in one sweep (wavefront admission,
+The kernel/policy boundary.  ``flex_pick_node`` makes one decision
+(``repro_torch.api.admission.pick_node``); ``flex_admit_queue`` admits a
+whole queue in order (the sequential scan,
+``repro_torch.api.admission.admit_queue``); ``flex_pick_node_batch``
+(each task's argmax) and ``flex_pick_node_batch_topk`` (each task's k
+best nodes) score a whole queue in one sweep (wavefront admission,
 ``repro_torch.api.admission.admit_queue_wavefront``).  Dispatch follows
 the tensors' device: CPU tensors take the plain versions (``ref.py``),
 CUDA tensors launch the hand-written kernels or raise.
@@ -13,10 +14,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flex_score.flex_score import (flex_score_batch_pick,
+from repro_torch.kernels.flex_score.flex_score import (flex_score_admit,
+                                                       flex_score_batch_pick,
                                                        flex_score_batch_topk,
                                                        flex_score_pick)
-from repro_torch.kernels.flex_score.ref import (NEG_INF, pick_node_batch_ref,
+from repro_torch.kernels.flex_score.ref import (NEG_INF, admit_queue_ref,
+                                                pick_node_batch_ref,
                                                 pick_node_batch_topk_ref,
                                                 pick_node_ref)
 
@@ -61,6 +64,28 @@ def flex_pick_node(est, reserved, src_frac, r_task, penalty, *, w_load=1.0,
                                 src_frac.contiguous(), task_vec)
     best = best[0]
     return idx[0], best, best > NEG_INF / 2
+
+
+def flex_admit_queue(est, reserved, requested, n_tasks, src_count, task_mat,
+                     srcs, valid):
+    """A queue admitted in order, one fused decision and commit per task
+    (Alg. 3 lines 3-9 and the placement), each scoring with the Flex
+    same-source share of the state the tasks before it left.
+
+    est (N, R) f32; reserved, requested (N, R) f32, n_tasks (N,) i32 and
+    src_count (N, 64) i32, updated IN PLACE; task_mat (Q, R + 4) f32 rows
+    ``[r..., penalty, cap, w_load, w_src]``; srcs (Q,) i32; valid (Q,)
+    bool.  CPU tensors take :func:`admit_queue_ref`; CUDA tensors launch
+    the queue kernel once, or raise.
+
+    Returns placements (Q,) i32, a node or -1, without waiting for the
+    device.
+    """
+    args = (est, reserved, requested, n_tasks, src_count, task_mat, srcs,
+            valid)
+    if _device_kind("flex_admit_queue", est) == "cpu":
+        return admit_queue_ref(*args)
+    return flex_score_admit(*args)
 
 
 def _check_batch_args(caller, est, src_frac, r_task, penalty, cap, w_load,

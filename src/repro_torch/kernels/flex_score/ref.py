@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the Flex filter+score+argmax step.
 
 Mirror ``repro.kernels.flex_score.ref`` (``pick_node_ref`` and its batched
-and top-K forms) as the reference runs them, jitted: XLA contracts
+and top-K forms) as the reference runs them, jitted, and the reference's
+sequential scan over a queue (``admit_queue_ref``, the ``lax.scan`` of
+``repro.api.admission.admit_queue``): XLA contracts
 ``penalty * est + reserved`` and ``w_load * max_R(load) + w_src *
 src_frac`` into fused multiply-adds, so these versions round each once
 (:func:`repro_torch.core.numerics.fma`), exactly as the CUDA kernels do
@@ -37,6 +39,60 @@ def pick_node_ref(est, reserved, src_frac, r_task, penalty, w_load, w_src,
     best = torch.argmax(score).to(torch.int32)
     idx = torch.where(any_feasible, best, -1).to(torch.int32)
     return idx, score.max(), any_feasible
+
+
+def commit_one(reserved, requested, n_tasks, src_count, idx, ok, request,
+               src) -> None:
+    """The reference's commit of one decision, in place: node
+    ``c = max(idx, 0)`` adds ``ok * request`` to reserved and requested and
+    ``ok`` to n_tasks and src_count[c, src], so a decision that places
+    nothing adds zeros to node 0.  ``idx`` () i32, ``ok`` () bool,
+    ``request`` (R,), ``src`` () i32."""
+    i = torch.clamp(idx, min=0).reshape(1)
+    add_f = (ok.to(torch.float32) * request).reshape(1, -1)
+    add_i = ok.to(torch.int32).reshape(1)
+    reserved.index_add_(0, i, add_f)
+    requested.index_add_(0, i, add_f)
+    n_tasks.index_add_(0, i, add_i)
+    src_count.view(-1).index_add_(
+        0, i * src_count.shape[1] + src.reshape(1), add_i)
+
+
+def src_share(n_tasks, src_count, src) -> torch.Tensor:
+    """(N,) f32 Flex same-source share of source ``src`` () i32 on each
+    node: ``src_count[:, src] / max(n_tasks, 1)``, an IEEE division."""
+    same = src_count.index_select(1, src.reshape(1)).squeeze(1)
+    return same.float() / torch.clamp(n_tasks, min=1).float()
+
+
+def admit_queue_ref(est, reserved, requested, n_tasks, src_count, task_mat,
+                    srcs, valid):
+    """Plain version of the queue kernel: a queue admitted in order, one
+    :func:`pick_node_ref` and one :func:`commit_one` per task.
+
+    est (N, R); reserved, requested (N, R), n_tasks (N,) i32 and src_count
+    (N, 64) i32, updated IN PLACE; task_mat (Q, R + 4) rows ``[r...,
+    penalty, cap, w_load, w_src]``; srcs (Q,) i32; valid (Q,) bool.  Task
+    q's src_frac is the Flex same-source share ``src_count[:, src] /
+    max(n_tasks, 1)`` of the state the tasks before it left.  Nothing here
+    waits for the device.  Returns placements (Q,) i32, a node or -1.
+    """
+    r = est.shape[1]
+    out = []
+    for k in range(task_mat.shape[0]):
+        row, src = task_mat[k], srcs[k]
+        src_frac = src_share(n_tasks, src_count, src)
+        idx, _, feasible = pick_node_ref(est, reserved, src_frac, row[:r],
+                                         row[r], row[r + 2], row[r + 3],
+                                         cap=row[r + 1])
+        ok = feasible & valid[k]
+        idx = torch.where(ok, idx, -1).to(torch.int32)
+        commit_one(reserved, requested, n_tasks, src_count, idx, ok, row[:r],
+                   src)
+        out.append(idx)
+    if not out:
+        return torch.empty(0, dtype=torch.int32, device=est.device)
+    return torch.stack(out)
 
 
 def _batch_scores(est, reserved, src_frac, r_task, penalty, w_load, w_src,
