@@ -55,6 +55,23 @@ after phase 3:
   e. the small replayed-noise wavefront run on the card against the CPU.
   f. profile: where one full-width wavefront queue's time goes.
 
+Headroom reclamation and the predictive estimators, after phase f:
+
+  n. phase 3's trace and cluster under flex-f with the ``quantile``
+     estimator and reclamation (a pool of 4096), 27 slots (24 and 3
+     past the last arrivals, when the pass can first place a task under
+     flex-f): the queue kernel once per non-empty primary queue, the
+     top-K kernel once per reclaim sweep, tasks reclaimed, placements in
+     range; the first 4 slots through the plain hooks with the same
+     placements, admit slots and reclaim counts; logged beside phase 3's
+     ``current`` run; the quantile refresh timed; a small least-fit
+     reclamation run on the card against the CPU.
+  o. ``train_usage_predictor`` on the card at the reference's defaults
+     (the loss must fall), its checkpoint reloaded (estimates equal to
+     the trained predictor's), timed per training step and per refresh;
+     then phase n's study with the trained estimator (the top-K kernel
+     must launch).
+
 The serving path (launch/serve.py over ServeEngine) at stablelm-3b's full
 width, after phase a and after phase f:
 
@@ -143,6 +160,13 @@ PLAIN_SLOTS = 4
 # serving phases joined the run, to keep it inside half its time limit: it
 # is held against the sequential run's first WAVE_SLOTS slots.
 WAVE_SLOTS = 12
+# Depth of phases n and o, raised from 24 and 12 slots to 27.  Under
+# flex-f the reclaim cap (1 - 0.1 P) is tighter than primary admission's
+# (1), so the pass places a pooled task only once the primary queue stops
+# filling the cluster, after the trace's last arrivals (slot 23); and
+# under a current-like estimate (phase o) the pool stays empty for the
+# first dozen slots or more, and an empty pool launches no sweep.
+RECLAIM_SLOTS = 27
 # Phase a's sizes, and the width of the synthetic queues of phases a, d, f
 # (the study's compacted queues hold about 4,100-5,100 tasks a slot; 64 is
 # the dedup's bucket count, 2 the serving engine's replica count).
@@ -630,21 +654,24 @@ def _check_result(res, cfg, n_tasks: int) -> None:
         raise AssertionError("placement out of range")
 
 
-def small_run_against_cpu(dev, mode: str = "sequential") -> None:
+def small_run_against_cpu(dev, mode: str = "sequential",
+                          policy: str = "flex-f", **cfg_kw):
+    """The same replayed-noise run on the card and on the CPU; returns the
+    card's result."""
     import numpy as np
 
     from repro_torch.convert import noise_table_from_numpy
     from repro_torch.core import SimConfig, run
     from repro_torch.traces import generate_calibrated
 
-    cfg = SimConfig(**SMALL, use_kernel=True, admission_mode=mode)
+    cfg = SimConfig(**SMALL, use_kernel=True, admission_mode=mode, **cfg_kw)
     out = {}
     for device in (dev, torch.device("cpu")):
         ts = generate_calibrated(0, cfg.n_nodes, cfg.n_slots, OFFERED_LOAD,
                                  device=device)
         table = np.random.default_rng(0).standard_normal(
             (cfg.n_slots, ts.num_tasks)).astype(np.float32)
-        out[device.type] = run(ts, cfg, "flex-f", device=device,
+        out[device.type] = run(ts, cfg, policy, device=device,
                                noise=noise_table_from_numpy(table,
                                                             device=device))
     gpu, cpu = out["cuda"], out["cpu"]
@@ -652,13 +679,20 @@ def small_run_against_cpu(dev, mode: str = "sequential") -> None:
     for name in ("placement", "admit_slot", "qos_ok_slots", "active_slots"):
         if not torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)):
             raise AssertionError(f"small run: {name} differs GPU vs CPU")
+    for name in ("n_rejected", "n_reclaimed"):
+        if not torch.equal(getattr(gpu.metrics, name).cpu(),
+                           getattr(cpu.metrics, name)):
+            raise AssertionError(f"small run: metrics.{name} differs")
     for name in ("usage", "requested", "qos", "penalty", "est_usage"):
         a, b = getattr(gpu.metrics, name).cpu(), getattr(cpu.metrics, name)
         if not torch.allclose(a, b, rtol=1e-6, atol=1e-6):
             raise AssertionError(f"small run: metrics.{name} differs")
-    log(f"[small] flex-f {mode} N={cfg.n_nodes} S={cfg.n_slots}, replayed "
-        f"noise: GPU placements equal the CPU port's "
-        f"({int((gpu.placement >= 0).sum())} admitted)")
+    log(f"[small] {policy} {mode} N={cfg.n_nodes} S={cfg.n_slots} "
+        f"{json.dumps(cfg_kw, sort_keys=True)}, replayed noise: GPU "
+        f"placements equal the CPU port's "
+        f"({int((gpu.placement >= 0).sum())} admitted, "
+        f"{int(gpu.metrics.n_reclaimed[-1])} of them reclaimed)")
+    return gpu
 
 
 def _same_decisions(what: str, res, ref, n_slots=None) -> None:
@@ -679,8 +713,8 @@ def _same_decisions(what: str, res, ref, n_slots=None) -> None:
 
 def slice_end_to_end(dev):
     """Phase 3; returns (the queue kernel's launches in the kernel run, the
-    trace, the kernel run's result).  The plain path runs the first
-    PLAIN_SLOTS slots."""
+    trace, the kernel run's result, its decisions/s).  The plain path runs
+    the first PLAIN_SLOTS slots."""
     from repro_torch.api import Experiment, admission
     from repro_torch.core import SimConfig
     from repro_torch.kernels.flex_score import flex_score as fs
@@ -694,7 +728,7 @@ def slice_end_to_end(dev):
         f"offered load {OFFERED_LOAD} ({time.perf_counter() - t0:.2f} s); "
         f"horizon cut from {PAPER_SLOTS} to {cfg.n_slots} slots to fit the "
         f"time limit")
-    runs = {}
+    runs, rates = {}, {}
     for use_kernel in (True, False):
         run_cfg = cfg._replace(use_kernel=use_kernel)
         if not use_kernel:
@@ -713,6 +747,7 @@ def slice_end_to_end(dev):
             warnings.simplefilter("ignore")
             summary = analysis.summarize(ts, res, 0.99)
         runs[use_kernel] = (res, c)
+        rates[use_kernel] = c["decisions"] / wall
         log(f"[slice] flex-f use_kernel={use_kernel}, {run_cfg.n_slots} "
             f"slots: {c['decisions']} decisions in {wall:.2f} s = "
             f"{c['decisions'] / wall:.1f} decisions/s "
@@ -732,7 +767,7 @@ def slice_end_to_end(dev):
     _same_decisions("use_kernel=False", runs[False][0], res_k, PLAIN_SLOTS)
     log(f"[slice] the plain path's placements and admit slots equal the "
         f"kernel run's first {PLAIN_SLOTS} slots")
-    return {"flex_score_admit": c["queue"]}, ts, res_k
+    return {"flex_score_admit": c["queue"]}, ts, res_k, rates[True]
 
 
 # ---------------------------------------------------------------------------
@@ -1082,6 +1117,213 @@ def profile_study(dev, ts, n_slots: int = 3) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"[study]   {e.key[:60]}: {e.count / n_slots:.1f} per slot, "
             f"{e.self_device_time_total / 1e3 / n_slots:.3f} ms per slot")
+
+
+# ---------------------------------------------------------------------------
+# phases n and o: headroom reclamation and the predictive estimators
+# ---------------------------------------------------------------------------
+
+def _reclaim_config(n_slots: int):
+    from repro_torch.core import SimConfig
+    return SimConfig(**FULL, use_kernel=True, estimator="quantile",
+                     reclamation=True,
+                     reclaim_pool=FULL["arrivals_per_slot"])._replace(
+                         n_slots=n_slots)
+
+
+def _timed_reclaim_run(exp):
+    """``_timed_run`` with each reclaim pass timed on the host clock
+    (synchronised before and after, which the run's wall time includes).
+    Returns (result, wall s, counts, [(pool entries, pass s)...])."""
+    from repro_torch.api import ReclaimPolicy, admission
+
+    passes = []
+    admit = admission.admit_queue
+
+    def timed_admit(policy, node, requests, *args, **kw):
+        if not isinstance(policy, ReclaimPolicy):
+            return admit(policy, node, requests, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = admit(policy, node, requests, *args, **kw)
+        torch.cuda.synchronize()
+        passes.append((requests.shape[0], time.perf_counter() - t0))
+        return out
+
+    admission.admit_queue = timed_admit
+    try:
+        res, wall, c = _timed_run(exp)
+    finally:
+        admission.admit_queue = admit
+    return res, wall, c, passes
+
+
+def _check_reclaim_launches(what: str, c: dict, passes) -> int:
+    """The primary queues went through the queue kernel, the reclaim
+    passes through the top-K kernel; returns the primary queues."""
+    primary = c["queues"] - sum(q > 0 for q, _ in passes)
+    if primary == 0 or c["queue"] != primary:
+        raise AssertionError(f"{what}: flex_score_admit launched "
+                             f"{c['queue']} times for {primary} non-empty "
+                             f"primary queues")
+    if c["sweeps"] == 0 or c["topk"] != c["sweeps"]:
+        raise AssertionError(f"{what}: flex_score_batch_topk launched "
+                             f"{c['topk']} times for {c['sweeps']} reclaim "
+                             f"sweeps")
+    if c["pick"] or c["batch"]:
+        raise AssertionError(f"{what}: another kernel launched")
+    return primary
+
+
+def _refresh_ms(est, n: int, dev) -> float:
+    """CUDA-event time of one refresh at N nodes, the window full."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = est.init_state(n, device=dev)
+    for _ in range(getattr(est, "window", 1) + 1):
+        usage = torch.rand((n, 2), generator=gen, device=dev)
+        state = est.refresh(state, usage, None)
+    return _event_ms(lambda: est.refresh(state, usage, None), 20)
+
+
+def reclaim_end_to_end(dev, ts, res_seq, seq_rate) -> dict:
+    """Phase n; returns the kernel run's launches by kernel name."""
+    from repro_torch.api import Experiment
+    from repro_torch.estimators import QuantileWindowEstimator
+    from repro_torch.traces import analysis
+
+    cfg = _reclaim_config(RECLAIM_SLOTS)
+    res, wall, c, passes = _timed_reclaim_run(
+        Experiment(ts, cfg, "flex-f", device=dev))
+    _check_result(res, cfg, ts.num_tasks)
+    primary = _check_reclaim_launches("phase n", c, passes)
+    m = res.metrics
+    reclaimed = int(m.n_reclaimed[-1])
+    if reclaimed <= 0:
+        raise AssertionError(f"phase n reclaimed nothing in {cfg.n_slots} "
+                             f"slots")
+    n_pool = sum(q for q, _ in passes)
+    log(f"[reclaim] flex-f + quantile + reclamation N={cfg.n_nodes} "
+        f"S={cfg.n_slots} (pool {cfg.reclaim_pool}): {c['decisions']} "
+        f"decisions ({c['decisions'] - n_pool} primary, {n_pool} in the "
+        f"reclaim pass) in {wall:.2f} s = {c['decisions'] / wall:.1f} "
+        f"decisions/s, {(c['decisions'] - n_pool) / wall:.1f} primary "
+        f"(phase 3: {seq_rate:.1f}); {c['queue']} flex_score_admit launches "
+        f"for {primary} primary queues, {c['topk']} flex_score_batch_topk "
+        f"launches for {c['sweeps']} sweeps")
+    log(f"[reclaim] the reclaim pass: {sum(t for _, t in passes) * 1e3 / cfg.n_slots:.2f} "
+        f"ms, {c['rounds'] / cfg.n_slots:.2f} rounds, "
+        f"{c['sweeps'] / cfg.n_slots:.2f} sweeps and "
+        f"{n_pool / cfg.n_slots:.1f} pooled tasks per slot; per slot "
+        f"(entries, ms): "
+        + ", ".join(f"({q}, {t * 1e3:.1f})" for q, t in passes))
+    early = FULL["n_slots"]     # phase 3's depth
+    in_early = (res.admit_slot >= 0) & (res.admit_slot < early)
+    for name, r, admitted in (
+            ("phase 3 (current)", res_seq, int((res_seq.placement >= 0)
+                                               .sum())),
+            ("phase n (quantile + reclamation)", res, int(in_early.sum()))):
+        log(f"[reclaim] first {early} slots, {name}: {admitted} admitted, "
+            f"{int(r.metrics.n_reclaimed[early - 1])} reclaimed, QoS "
+            f"violated in {float((r.metrics.qos[:early] < 0.99).float().mean()):.4f} "
+            f"of slots, mean CPU usage "
+            f"{float(r.metrics.usage[:early, 0].mean()):.4f}")
+    log(f"[reclaim] all {cfg.n_slots} slots: "
+        f"{int((res.placement >= 0).sum())} admitted, {reclaimed} "
+        f"reclaimed; n_reclaimed per slot {m.n_reclaimed.tolist()}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        summary = analysis.summarize(ts, res, 0.99)
+    log("[reclaim] summary: " + json.dumps(summary, sort_keys=True))
+
+    res_p, wall_p, c_p, _ = _timed_reclaim_run(Experiment(
+        ts, cfg._replace(use_kernel=False, n_slots=PLAIN_SLOTS), "flex-f",
+        device=dev))
+    if c_p["queue"] or c_p["pick"]:
+        raise AssertionError("phase n's plain path launched a pick kernel")
+    _same_decisions("phase n use_kernel=False", res_p, res, PLAIN_SLOTS)
+    if not torch.equal(res_p.metrics.n_reclaimed,
+                       m.n_reclaimed[:PLAIN_SLOTS]):
+        raise AssertionError("phase n: n_reclaimed differs on the plain "
+                             "path")
+    log(f"[reclaim] the plain path ({PLAIN_SLOTS} slots, {wall_p:.2f} s): "
+        f"placements, admit slots and n_reclaimed equal the kernel run's")
+
+    ms = _refresh_ms(QuantileWindowEstimator(), cfg.n_nodes, dev)
+    log(f"[reclaim] quantile refresh (W = 12, N = {cfg.n_nodes}, R = 2): "
+        f"{ms:.4f} ms (CUDA events, eager)")
+    small = small_run_against_cpu(
+        dev, "sequential", "least-fit", estimator="quantile",
+        reclamation=True, reclaim_pool=SMALL["arrivals_per_slot"])
+    if int(small.metrics.n_reclaimed[-1]) <= 0:
+        raise AssertionError("the small reclamation run reclaimed nothing")
+    return {"flex_score_admit": c["queue"],
+            "flex_score_batch_topk": c["topk"]}
+
+
+def learned_end_to_end(dev, ts) -> dict:
+    """Phase o; returns the study's launches by kernel name."""
+    import tempfile
+
+    from repro_torch.api import Experiment
+    from repro_torch.estimators import (LearnedUsageEstimator,
+                                        make_dataset, train_usage_predictor)
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        params, losses = train_usage_predictor(ts, device=dev,
+                                               ckpt_dir=ckpt_dir)
+        restored = LearnedUsageEstimator.from_checkpoint(ckpt_dir)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training did not reduce the loss: "
+                             f"{losses[0]} -> {losses[-1]}")
+    # timed again, warm: 200 steps after the dataset is built
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_usage_predictor(ts, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    white = torch.randn((min(ts.num_tasks, 512), 64), device=dev)
+    t0 = time.perf_counter()
+    make_dataset(ts, 64, 12, white)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    log(f"[learned] trained at the reference's defaults (window 12, hidden "
+        f"8, 64-slot series of 512 tasks, 200 steps of 1024): loss "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g}; {train_s:.3f} s, of it "
+        f"{data_s:.3f} s building the dataset: "
+        f"{(train_s - data_s) * 1e3 / 200:.3f} ms per training step")
+
+    in_memory = LearnedUsageEstimator.from_params(params, 12, 8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    n = FULL["n_nodes"]
+    states = [e.init_state(n, device=dev) for e in (restored, in_memory)]
+    for slot in range(16):
+        usage = torch.rand((n, 2), generator=gen, device=dev)
+        states = [e.refresh(st, usage, None)
+                  for e, st in zip((restored, in_memory), states)]
+        if not torch.equal(states[0].est, states[1].est):
+            raise AssertionError(f"the checkpoint's estimates differ from "
+                                 f"the trained ones at slot {slot}")
+    ms = _refresh_ms(restored, n, dev)
+    log(f"[learned] the checkpoint's estimates equal the trained "
+        f"predictor's (16 slots, N = {n}); refresh {ms:.4f} ms (CUDA "
+        f"events, eager)")
+
+    cfg = _reclaim_config(RECLAIM_SLOTS)
+    res, wall, c, passes = _timed_reclaim_run(
+        Experiment(ts, cfg, "flex-f", device=dev, estimator=restored))
+    _check_result(res, cfg, ts.num_tasks)
+    _check_reclaim_launches("phase o", c, passes)
+    log(f"[learned] flex-f + trained learned + reclamation N={n} "
+        f"S={cfg.n_slots}: {c['decisions']} decisions in {wall:.2f} s = "
+        f"{c['decisions'] / wall:.1f} decisions/s; "
+        f"{int((res.placement >= 0).sum())} admitted, "
+        f"{int(res.metrics.n_reclaimed[-1])} reclaimed; {c['queue']} "
+        f"flex_score_admit and {c['topk']} flex_score_batch_topk launches "
+        f"({c['sweeps']} sweeps)")
+    return {"flex_score_admit": c["queue"],
+            "flex_score_batch_topk": c["topk"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1924,7 +2166,7 @@ def main() -> int:
                *timed("a", batch_kernels_vs_plain),
                timed("g", flash_vs_plain),
                timed("k", ssd_vs_plain)]
-    launches, ts, res_seq = timed("3", slice_end_to_end)
+    launches, ts, res_seq, seq_rate = timed("3", slice_end_to_end)
     launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
                                               res_seq)
     launches["flex_score_batch_pick"] = timed("c", topk0_loop, ts,
@@ -1935,6 +2177,13 @@ def main() -> int:
     launches["flex_score_pick"] = timed("5", profile_decisions)
     timed("5 (study)", profile_study, ts)
     timed("f", profile_wavefront)
+    recl = timed("n", reclaim_end_to_end, ts, res_seq, seq_rate)
+    learned = timed("o", learned_end_to_end, ts)
+    log(f"[reclaim] launches on the reclamation path: phase n "
+        f"flex_score_admit {recl['flex_score_admit']}, flex_score_batch_topk "
+        f"{recl['flex_score_batch_topk']}; phase o flex_score_admit "
+        f"{learned['flex_score_admit']}, flex_score_batch_topk "
+        f"{learned['flex_score_batch_topk']}")
     launches["flash_attention"], serve_runs = timed("h", serve_end_to_end)
     timed("i", prefill_vs_decode)
     timed("j", profile_serving)

@@ -39,6 +39,7 @@ from repro_torch.api.policies import (  # noqa: F401
     LeastFitPolicy,
     OversubPolicy,
     PriorityFlexPolicy,
+    ReclaimPolicy,
     resolve_estimator,
 )
 from repro_torch.estimators import (  # noqa: F401

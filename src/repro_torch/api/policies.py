@@ -1,9 +1,10 @@
 """Built-in policies and the penalty controller (port of ``repro.api.policies``).
 
-The paper's four policies (LeastFit, Oversub, FlexF, FlexL) and two
-registry extensions (best-fit-usage, flex-priority), with the reference's
-arithmetic, plus the AIMD penalty controller.  The reclaim, migrate and
-flex-brownout policies come with the slices that use them.
+The paper's four policies (LeastFit, Oversub, FlexF, FlexL), three
+registry extensions (best-fit-usage, flex-priority, and reclaim, the
+simulator's headroom-reclamation pass), with the reference's arithmetic,
+plus the AIMD penalty controller.  The migrate and flex-brownout policies
+come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -199,6 +200,36 @@ class PriorityFlexPolicy(FlexFifoPolicy):
         key = torch.where(valid, 2.0 * is_prod + requests[:, MEM],
                           -torch.inf)
         return torch.argsort(-key, stable=True)
+
+
+@register_policy("reclaim")
+@dataclasses.dataclass(frozen=True)
+class ReclaimPolicy(FlexFifoPolicy):
+    """Headroom reclamation: second-chance admission against PREDICTED usage.
+
+    The simulator's reclamation pass (``SimConfig(reclamation=True)``)
+    re-admits tasks the primary policy dropped: a node is feasible iff
+    ``P * L-hat + reserved + r <= 1 - margin_scale * P``.  The margin
+    follows the live penalty P, so reclamation backs off as QoS
+    violations raise it.  Scoring is FlexF's, and the cap rides the
+    kernel template's ``cap`` scalar, so the pass runs through the same
+    admission path as primary admission.
+    """
+
+    name = "reclaim"
+    margin_scale: float = 0.1
+
+    def _cap(self, ctx: PolicyContext) -> torch.Tensor:
+        # Rounded once: the jitted reference contracts 1 - m * P.
+        return torch.clamp(fma(-self.margin_scale, ctx.penalty, 1.0),
+                           min=0.0)
+
+    def feasible(self, ctx: PolicyContext, task: TaskView) -> torch.Tensor:
+        return admission.fits(self._load(ctx), task.request, self._cap(ctx))
+
+    def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
+        penalty, _, w_load, w_src = super()._kernel_scalars(ctx, task)
+        return penalty, self._cap(ctx), w_load, w_src
 
 
 def resolve_estimator(est, noise_std: float = 0.0):

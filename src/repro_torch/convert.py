@@ -91,3 +91,10 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], *,
               {k: _leaf(v, device) for k, v in tree["ln_f"].items()},
               None if lm_head is None else _leaf(lm_head, device),
               None if shared is None else groups(shared))
+
+
+def learned_params(np_params: Mapping[str, np.ndarray], *,
+                   device="cuda") -> dict:
+    """The reference's usage-predictor parameters (``mlp_init``'s dict,
+    numpy leaves) -> the port's float32 tensors on ``device``."""
+    return {k: _tensor(k, v, device) for k, v in np_params.items()}

@@ -12,9 +12,13 @@ running
      slot's arrivals admitted in order: one decision at a time
      (``admission_mode="sequential"``) or in wavefront rounds over the
      batched kernels (``"wavefront"``)
+  7. with ``SimConfig(reclamation=True)``: tasks dropped for good (out of
+     retries, or past the retry queue) join a bounded pool, which the
+     ``reclaim`` policy re-admits against predicted headroom through the
+     same ``admission.admit_queue`` front end, in wavefront rounds
 
-and the per-slot metrics.  Faults, migration, the guard, reclamation and
-retry backoff/jitter come with later slices (``NotImplementedError``).
+and the per-slot metrics.  Faults, migration, the guard and retry
+backoff/jitter come with later slices (``NotImplementedError``).
 
 The queue of a slot is compacted to its ready entries before admission:
 the one host sync per slot of the sequential mode.  It leaves every
@@ -94,8 +98,6 @@ def _check_supported(cfg: SimConfig) -> None:
         (cfg.faults is not None, "SimConfig.faults", "faults"),
         (cfg.migration is not None, "SimConfig.migration", "migration"),
         (cfg.guard is not None, "SimConfig.guard", "guard"),
-        (cfg.reclamation, "SimConfig.reclamation",
-         "estimators and reclamation"),
         (cfg.retry_backoff > 0, "SimConfig.retry_backoff", "faults"),
         (cfg.retry_jitter > 0, "SimConfig.retry_jitter", "faults"),
     ]
@@ -128,6 +130,7 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
     controller.
     """
     from repro_torch.api import admission
+    from repro_torch.api.policies import ReclaimPolicy
     from repro_torch.api.protocols import policy_queue_order
 
     _check_supported(cfg)
@@ -154,6 +157,10 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
     empty_i = torch.zeros((0,), dtype=I32, device=dev)
     empty_f = torch.zeros((0,), dtype=torch.float32, device=dev)
     retry_pos = torch.arange(Qr, dtype=I32, device=dev)
+    n_reclaimed = zero_i
+    if cfg.reclamation:
+        reclaim_policy = ReclaimPolicy(margin_scale=cfg.reclaim_margin)
+        pool = torch.full((cfg.reclaim_pool,), -1, dtype=I32, device=dev)
     innov = sqrt(torch.clamp(fma(-ts.ar_rho, ts.ar_rho, 1.0), min=0.0))
 
     metrics = []
@@ -231,7 +238,40 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
         exhausted = failed & (attempts[qi] > cfg.max_retries)
         n_dropped = (exhausted.sum(dtype=I32)
                      + torch.clamp(n_eligible - Qr, min=0))
-        n_rejected = n_rejected + n_dropped
+
+        # --- 7. headroom reclamation ------------------------------------------
+        if cfg.reclamation:
+            # Tasks dropped for good join the pool, valid-first in queue
+            # order; only the pool's overflow counts as rejected.
+            rank = torch.argsort(retry_order)   # queue pos -> sorted pos
+            pooled = exhausted | (eligible & (rank >= Qr))
+            merged = torch.cat([pool, torch.where(pooled, queue_ids, -1)])
+            merged = merged[torch.argsort((merged < 0).to(I32), stable=True)]
+            pool = merged[:cfg.reclaim_pool]
+            n_rejected = n_rejected + ((merged >= 0).sum(dtype=I32)
+                                       - (pool >= 0).sum(dtype=I32))
+            # The pool is valid-first: admit its valid prefix (the pass's
+            # host sync), judged by P * L-hat + reserved against the
+            # penalty-derived cap, in wavefront rounds.
+            n_pool = int((pool >= 0).sum())
+            pi = pool[:n_pool]
+            node, r_idx = admission.admit_queue(
+                reclaim_policy, node, ts.request[pi], ts.src[pi],
+                ts.priority[pi], torch.ones_like(pi, dtype=torch.bool),
+                ctrl.penalty, params, use_kernel=cfg.use_kernel,
+                batch_mode=True, topk=cfg.wavefront_topk,
+                dedup_buckets=cfg.dedup_buckets,
+                tie_margin=cfg.wavefront_tie_margin)
+            r_ok = r_idx >= 0
+            placement = placement.scatter_reduce(
+                0, pi.long(), torch.where(r_ok, r_idx, -1), "amax")
+            admit_slot = admit_slot.scatter_reduce(
+                0, pi.long(), torch.where(r_ok, slot, -1).to(I32), "amax")
+            n_reclaimed = n_reclaimed + r_ok.sum(dtype=I32)
+            pool = torch.cat([torch.where(r_ok, -1, pi), pool[n_pool:]])
+            pool = pool[torch.argsort((pool < 0).to(I32), stable=True)]
+        else:
+            n_rejected = n_rejected + n_dropped
 
         # --- metrics ----------------------------------------------------------
         req_total = (node.requested + node.reserved).sum(dim=0)
@@ -248,7 +288,7 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
             est_usage=est_state.est.sum(dim=0) / n_nodes,
             node_est=est_state.est if record else empty_nr,
             node_requested=requested if record else empty_nr,
-            n_reclaimed=zero_i,
+            n_reclaimed=n_reclaimed,
             n_fault_evicted=zero_i,
             n_degrade_evicted=zero_i,
             degraded=zero_i,

@@ -1,7 +1,8 @@
 """String registry for load estimators (port of ``repro.estimators.registry``).
 
 Names resolve to zero-argument factories; last registration wins.  The
-registry lists only what is registered: ``current`` and ``ewma`` here.
+built-ins are the reference's four: ``current``, ``ewma``, ``quantile``
+and ``learned``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ def register_estimator(name: str,
 
 def _ensure_builtins():
     import repro_torch.estimators.builtin  # noqa: F401
+    import repro_torch.estimators.learned  # noqa: F401
 
 
 def get_estimator(name: str):

@@ -1,0 +1,93 @@
+"""AdamW with global-norm clipping and a cosine schedule.
+
+Port of ``repro.train.optimizer`` over dicts of tensors (name -> tensor):
+leaves are taken in sorted-key order, the order in which JAX flattens a
+dict.  Moments are float32.  Decoupled weight decay applies to matrices
+only (leaves of two or more dimensions), as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.numerics import fma
+
+Params = Dict[str, torch.Tensor]
+
+
+class AdamWConfig(NamedTuple):
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor   # () i32
+    mu: Params
+    nu: Params
+
+
+def adamw_init(params: Params) -> AdamWState:
+    dev = next(iter(params.values())).device
+    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in params.items()}
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Learning rate at ``step``: linear warmup, then cosine decay to a
+    tenth of ``cfg.lr``.
+
+    Written in the form XLA compiles the reference to, with the config's
+    constants folded: each division by a constant is a product with its
+    float32 reciprocal, ``0.5 * (1 + cos) * 0.9 + 0.1`` is
+    ``fma(cos + 1, 0.45, 0.1)``, and ``lr`` multiplies the warmup first.
+    The cosine is correctly rounded (XLA's is within one ulp of it).
+    """
+    step = step.to(torch.float32)
+    inv_warm = np.float32(1) / np.float32(max(cfg.warmup_steps, 1))
+    inv_decay = np.float32(1) / np.float32(
+        max(cfg.total_steps - cfg.warmup_steps, 1))
+    warm = torch.clamp(step * float(inv_warm), max=1.0)
+    prog = torch.clamp((step - float(cfg.warmup_steps)) * float(inv_decay),
+                       0.0, 1.0)
+    cos = torch.cos((prog * float(np.float32(math.pi))).double()).float()
+    return (warm * cfg.lr) * fma(cos + 1.0, float(np.float32(0.45)), 0.1)
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float()))
+                          for k in sorted(tree)))
+
+
+def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
+                 params: Params) -> Tuple[Params, AdamWState, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm)."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    b1c = 1.0 - torch.pow(cfg.b1, step.to(torch.float32))
+    b2c = 1.0 - torch.pow(cfg.b2, step.to(torch.float32))
+    new_p, new_m, new_v = {}, {}, {}
+    for k in sorted(params):
+        p = params[k]
+        g = grads[k].float() * scale
+        m = fma(cfg.b1, state.mu[k], (1.0 - cfg.b1) * g)
+        v = fma(cfg.b2, state.nu[k], (1.0 - cfg.b2) * torch.square(g))
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if p.dim() >= 2:   # decoupled weight decay on matrices only
+            delta = fma(cfg.weight_decay, p.float(), delta)
+        new_p[k] = (p.float() - lr * delta).to(p.dtype)
+        new_m[k], new_v[k] = m, v
+    return new_p, AdamWState(step=step, mu=new_m, nu=new_v), gnorm

@@ -187,7 +187,7 @@ def test_current_estimator_matches():
     st = est.refresh(est.init_state(N_, device="cpu"),
                      torch.from_numpy(usage), None)
     _eq(st.est, usage)
-    assert list_estimators() == ["current", "ewma"]
+    assert list_estimators() == ["current", "ewma", "learned", "quantile"]
 
 
 def test_noisy_current_estimator_uses_the_draw():

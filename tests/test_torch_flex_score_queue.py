@@ -29,7 +29,7 @@ from repro_torch.kernels.flex_score import flex_score as fs
 from repro_torch.kernels.flex_score import ops
 from repro_torch.kernels.flex_score.ref import admit_queue_ref, src_share
 
-HOOKED = ["flex-f", "flex-l", "best-fit-usage", "flex-priority"]
+HOOKED = ["flex-f", "flex-l", "best-fit-usage", "flex-priority", "reclaim"]
 CASES = ["random", "tied", "infeasible"]
 
 # The tensors here are tiny: one intra-op thread is fastest, and keeps

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor anything of the JAX package."""
+"""The port imports neither JAX nor anything of the JAX package, nor
+``ml_dtypes`` (which the card's machine does not have)."""
 import importlib
 import os
 import pkgutil
@@ -20,7 +21,7 @@ FIRST = ["repro_torch", "repro_torch.core", "repro_torch.api",
          "repro_torch.kernels.flex_score", "repro_torch.convert",
          "repro_torch.configs", "repro_torch.models", "repro_torch.serving",
          "repro_torch.launch", "repro_torch.kernels.flash_attention",
-         "repro_torch.kernels.ssd_scan"]
+         "repro_torch.kernels.ssd_scan", "repro_torch.train"]
 
 _CHECK = r"""
 import importlib, pkgutil, sys
@@ -35,7 +36,8 @@ for first in sys.argv[1:]:
         importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
-                or m == "repro" or m.startswith("repro."))
+                or m == "repro" or m.startswith("repro.")
+                or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 print(len(names), leaked)
 """
 

@@ -88,6 +88,24 @@ def test_engine_matches_reference(policy, mode):
     assert js.finished > 0
 
 
+def test_engine_with_quantile_estimator_matches_reference():
+    """The engine judges replicas by the sliding-window quantile of their
+    measured usage; step for step as the reference."""
+    kw = dict(_PARITY, policy="flex", estimator="quantile")
+    rows = _workload(36, seed=5)
+    js, jlog, jstates = _trajectory(JServeEngine, JRequest,
+                                    JEngineConfig(**kw), rows, 50)
+    ts, tlog, tstates = _trajectory(ServeEngine, Request, EngineConfig(**kw),
+                                    rows, 50, device="cpu")
+    assert tlog == jlog
+    for step, (t, j) in enumerate(zip(tstates, jstates)):
+        assert t == j, f"step {step}"
+    assert ts.qos_series == js.qos_series
+    assert ts.penalty_series == js.penalty_series
+    assert ts.util_series == js.util_series
+    assert js.finished > 0 and js.evicted_events > 0
+
+
 @pytest.mark.parametrize("policy", ["flex", "flex-priority",
                                     "best-fit-usage"])
 def test_parity_workload_evicts(policy):

@@ -191,7 +191,6 @@ def test_experiment_seeds_and_sweep_axes(trace):
     ("faults", object(), "faults"),
     ("migration", object(), "migration"),
     ("guard", object(), "guard"),
-    ("reclamation", True, "reclamation"),
     ("retry_backoff", 2, "faults"),
     ("retry_jitter", 3, "faults"),
 ])
@@ -236,3 +235,199 @@ def test_noisy_estimator_under_replay_raises(trace):
         run(ts, SimConfig(**SMALL), "flex-f", device="cpu",
             noise=noise_table_from_numpy(table, device="cpu"),
             est_noise_std=0.1)
+
+
+# ---------------------------------------------------------------------------
+# Headroom reclamation (simulator step 7) on the reference's reclaim_runs
+# cluster: 60 nodes, 32 slots, 256 arrivals a slot, 64 retries.
+# ---------------------------------------------------------------------------
+
+RECLAIM = dict(n_nodes=60, n_slots=32, arrivals_per_slot=256,
+               retry_capacity=64)
+QUANTILE_RECL = dict(estimator="quantile", reclamation=True,
+                     reclaim_pool=256)
+# (name, config, use_kernel values): least-fit is the reference's bench
+# policy; under flex-f the reclaim cap is tighter than primary admission's,
+# so it reclaims only once the arrivals stop: the drain case runs 8 slots
+# past the trace's last arrivals.
+RECLAIM_CASES = {
+    "least-fit-current": ("least-fit", dict(estimator="current"), (False,)),
+    "least-fit-reclaim": ("least-fit", QUANTILE_RECL, (False,)),
+    "flex-f-sequential": ("flex-f", QUANTILE_RECL, (False, True)),
+    "flex-f-wavefront-topk8": ("flex-f", dict(
+        QUANTILE_RECL, admission_mode="wavefront", wavefront_topk=8),
+        (False, True)),
+    "flex-f-wavefront-topk0": ("flex-f", dict(
+        QUANTILE_RECL, admission_mode="wavefront", wavefront_topk=0),
+        (False, True)),
+    "flex-f-drain": ("flex-f", dict(QUANTILE_RECL, n_slots=40), (True,)),
+}
+
+
+@pytest.fixture(scope="module")
+def reclaim_trace():
+    jts = jax_generate(0, RECLAIM["n_nodes"], RECLAIM["n_slots"], 1.5)
+    ts = taskset_from_numpy({k: np.asarray(v) for k, v in
+                             jts._asdict().items()}, device="cpu")
+    return jts, ts
+
+
+def _reclaim_port_run(ts, name, use_kernel=False, **kw):
+    cfg = SimConfig(**{**RECLAIM, **kw}, use_kernel=use_kernel)
+    table = noise_table(0, cfg.n_slots, ts.num_tasks)
+    return run(ts, cfg, name, device="cpu",
+               noise=noise_table_from_numpy(table, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def reclaim_runs(reclaim_trace):
+    """The port's runs of the reference's reclaim_runs fixture."""
+    _, ts = reclaim_trace
+    base = _reclaim_port_run(ts, "least-fit", estimator="current")
+    recl = _reclaim_port_run(ts, "least-fit", **QUANTILE_RECL)
+    return base, recl
+
+
+@pytest.mark.parametrize("case", sorted(RECLAIM_CASES))
+def test_reclamation_matches_reference(reclaim_trace, case):
+    """Placements, admit slots, n_reclaimed and n_rejected exactly equal;
+    the float sums within 1e-6."""
+    jts, ts = reclaim_trace
+    name, kw, kernel_modes = RECLAIM_CASES[case]
+    hooked = name in HOOKED
+    jcfg = JSimConfig(**{**RECLAIM, **kw}, use_kernel=hooked,
+                      kernel_interpret=True)
+    jres = jax_run(jts, jcfg, name)
+    for use_kernel in kernel_modes:
+        tres = _reclaim_port_run(ts, name, use_kernel, **kw)
+        assert_result_matches(jres, tres)
+    reclaimed = int(tres.metrics.n_reclaimed[-1])
+    if case in ("least-fit-reclaim", "flex-f-drain"):
+        assert reclaimed > 0
+    if not kw.get("reclamation"):
+        assert reclaimed == 0
+
+
+def test_reclamation_admits_more_at_equal_qos(reclaim_runs):
+    """The reference's acceptance bar: the quantile estimator with
+    reclamation admits >= 1.2x the ``current`` baseline at no worse a
+    QoS-violation fraction."""
+    base, recl = reclaim_runs
+    n_base = int((base.placement >= 0).sum())
+    n_recl = int((recl.placement >= 0).sum())
+    assert int(recl.metrics.n_reclaimed[-1]) > 0
+    assert n_recl >= 1.2 * n_base
+    viol_base = float((base.metrics.qos < 0.99).float().mean())
+    viol_recl = float((recl.metrics.qos < 0.99).float().mean())
+    assert viol_recl <= viol_base
+
+
+def test_reclamation_respects_capacity(reclaim_runs):
+    _, recl = reclaim_runs
+    assert torch.isfinite(recl.metrics.usage).all()
+    pl = recl.placement
+    assert bool(((pl >= -1) & (pl < RECLAIM["n_nodes"])).all())
+
+
+def test_reclamation_off_keeps_counter_zero(reclaim_runs):
+    base, _ = reclaim_runs
+    assert int(base.metrics.n_reclaimed[-1]) == 0
+
+
+def test_no_second_admission_path():
+    """The reclaim pass goes through the same ``admission.admit_queue``
+    front end as primary admission, and never calls the wavefront
+    directly."""
+    import inspect
+
+    from repro_torch.api import ReclaimPolicy, policy_supports_kernel
+    from repro_torch.core import simulator
+
+    assert policy_supports_kernel(ReclaimPolicy())
+    src = inspect.getsource(simulator)
+    assert "admit_queue_wavefront(" not in src
+    assert src.count("admission.admit_queue(") >= 2
+
+
+def test_reclaim_pass_runs_in_wavefront_rounds(reclaim_trace):
+    """A sequential study's reclaim pass takes the wavefront path: its
+    rounds and sweeps are the only ones counted."""
+    from repro_torch.api import admission
+
+    _, ts = reclaim_trace
+    admission.reset_decisions()
+    _reclaim_port_run(ts, "least-fit", **dict(QUANTILE_RECL, n_slots=12))
+    assert admission.SWEEPS > 0 and admission.ROUNDS > 0
+    admission.reset_decisions()
+    _reclaim_port_run(ts, "least-fit", n_slots=12)
+    assert admission.SWEEPS == admission.ROUNDS == 0
+
+
+def test_quantile_estimates_match_reference_scan(reclaim_trace):
+    """The quantile estimate inside the reference's jitted scan, node for
+    node, bit for bit."""
+    jts, ts = reclaim_trace
+    kw = dict(estimator="quantile", record_node_usage=True, n_slots=16)
+    jres = jax_run(jts, JSimConfig(**{**RECLAIM, **kw}), "flex-f")
+    tres = _reclaim_port_run(ts, "flex-f", **kw)
+    np.testing.assert_array_equal(tres.metrics.node_est.numpy(),
+                                  np.asarray(jres.metrics.node_est))
+    np.testing.assert_array_equal(tres.placement.numpy(),
+                                  np.asarray(jres.placement))
+
+
+def test_reclaim_kernel_inputs_equal_feasible_and_score():
+    """The reclaim policy's kernel template (penalty, cap, weights) gives
+    the feasibility and scores of its plain hooks."""
+    from repro_torch.api import ReclaimPolicy
+    from repro_torch.api.admission import PolicyContext, TaskView
+    from repro_torch.core.numerics import fma
+    from repro_torch.core.types import NodeState
+
+    pol = ReclaimPolicy(margin_scale=0.1)
+    gen = torch.Generator().manual_seed(0)
+    u = lambda *shape: torch.rand(shape, generator=gen)
+    tp = FlexParams.default(device="cpu")
+    for penalty in (1.0, 1.7, 4.0, 12.0):
+        node = NodeState(u(40, 2) * 0.5, u(40, 2) * 0.1, u(40, 2) * 0.9,
+                         (u(40) * 8).to(torch.int32),
+                         (u(40, 64) * 3).to(torch.int32))
+        ctx = PolicyContext(node=node, penalty=torch.tensor(penalty),
+                            params=tp)
+        for k in range(8):
+            task = TaskView(u(2) * 0.3, torch.tensor(k * 7 % 64,
+                                                     dtype=torch.int32),
+                            torch.tensor(k % 3, dtype=torch.int32))
+            ki = pol.kernel_inputs(ctx, task)
+            load = fma(ki.penalty, ki.est_usage, ki.reserved)
+            feas = (load + task.request <= ki.cap).all(dim=-1)
+            score = -fma(ki.w_load, load.max(dim=-1).values,
+                         ki.w_src * ki.src_frac)
+            want_feas = pol.feasible(ctx, task)
+            assert torch.equal(feas, want_feas)
+            assert torch.equal(score[feas], pol.score(ctx, task)[feas])
+
+
+def test_reclaim_cap_rounds_as_the_jitted_reference():
+    """``max(1 - m * P, 0)``: the jitted reference contracts it into one
+    fused multiply-add, and so does the port, over a sweep of penalties
+    and margins."""
+    from repro.api import ReclaimPolicy as JReclaimPolicy
+    from repro.api.admission import PolicyContext as JPolicyContext
+    from repro_torch.api import ReclaimPolicy
+    from repro_torch.api.admission import PolicyContext
+
+    rng = np.random.default_rng(0)
+    pens = np.concatenate([rng.uniform(0.5, 12.0, 4000),
+                           np.linspace(1.0, 3.0, 2001),
+                           [10.0, 11.0, 20.0]]).astype(np.float32)
+    for margin in (0.1, 0.05, 0.3):
+        jpol, tpol = JReclaimPolicy(margin_scale=margin), ReclaimPolicy(
+            margin_scale=margin)
+        want = np.asarray(jax.jit(jax.vmap(lambda p: jpol._cap(
+            JPolicyContext(node=None, penalty=p, params=None))))(pens))
+        got = tpol._cap(PolicyContext(node=None,
+                                      penalty=torch.from_numpy(pens),
+                                      params=None)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert (got == 0).any() and (got < 1).all()

@@ -30,7 +30,7 @@ from repro_torch.convert import node_state_from_numpy
 from repro_torch.core import schedule_queue
 from repro_torch.core.types import FlexParams
 
-HOOKED = ["flex-f", "flex-l", "best-fit-usage", "flex-priority"]
+HOOKED = ["flex-f", "flex-l", "best-fit-usage", "flex-priority", "reclaim"]
 
 # The tensors here are tiny: one intra-op thread is fastest, and keeps
 # PyTorch's pool from contending with XLA's in the same process.
