@@ -11,11 +11,15 @@ Phases, one line each (or a few):
   2. kernels against plain: the flex_score pick kernel and its plain
      PyTorch version on the same CUDA tensors, bit for bit, at
      N in {4000, 4097, 100000} (random, tied, all-infeasible, cap < 1 and
-     best-fit tasks); times per decision at N = 4000 beside the bound.
+     best-fit tasks; random, tied and faulted tables, the last with the
+     simulator's fault offsets: about 30% of the rows at DRAIN_LOAD, 20%
+     flapped to half capacity); times per decision at N = 4000 beside
+     the bound.
      Then the queue kernel (``flex_score_admit``) against
      ``admit_queue_ref``: placements and every node-state leaf bit for
      bit, at N in {4000, 4097, 100000} (src_count on chip, and gathered
-     from global memory) x Q in {1, 33, 4096}, on random and tied tables,
+     from global memory) x Q in {1, 33, 4096}, on random, tied and
+     faulted tables (the faulted ones with flex-brownout's per-task caps),
      with the same five kinds of task and about 15% of the entries invalid;
      times per call at N = 4000 and 100000, Q = 4096 (graph replay and
      eager), per decision beside the bounds and the pick kernel's.
@@ -25,7 +29,9 @@ Phases, one line each (or a few):
      kernel must launch once per non-empty slot queue and the pick kernel
      never, and the placements must be identical.
   4. small run against the CPU: the same replayed-noise flex-f run on the
-     card and on the CPU (which the tests hold against the JAX reference).
+     card and on the CPU (which the tests hold against the JAX reference),
+     and a flex-brownout run with a crash burst, degradation, migration,
+     the guard, reclamation, backoff and a replayed jitter table.
   5. profile: one queue at N = 4000 admitted by the ``admit_one`` loop
      (one pick launch a decision), the queue kernel and the plain hooks,
      bit-equal; where a decision's time goes (host clock, and the device's
@@ -38,16 +44,17 @@ after phase 3:
   a. the batched argmax and top-K kernels against their plain PyTorch
      versions, bit for bit, at N in {2, 4000, 4097, 100000} x Q in {1,
      33, 64, 4096} x K in {1, 8} (and one K = 40, which takes two
-     passes), on random and tied tables with a fifth of the tasks
-     fitting nowhere, and at R = 3 and on a table off 16 bytes (the
+     passes), on random, tied and faulted tables (as in phase 2) with a
+     fifth of the tasks fitting nowhere, and at R = 3 and on a table off 16 bytes (the
      instance with R read at run time); times per sweep at N = 4000,
      Q = 4096 and Q = 64 (graph replay and eager) beside the bound, the
      achieved GB/s and the earlier design's time.
   b. the wavefront study: phase 3's configuration with
-     ``admission_mode="wavefront"``, its first 12 slots; placements and
+     ``admission_mode="wavefront"``, its first 6 slots; placements and
      admit slots must equal those slots of phase 3's queue-kernel run,
      and the top-K kernel must launch once per sweep.
-  c. the ``wavefront_topk=0`` loop, 4 slots deep, against the first 4
+  c. the ``wavefront_topk=0`` loop, 3 slots deep (cut from 4 when phases
+     p and q came), against the first 3
      slots of phase 3's sequential run: the batched argmax kernel on a
      path.
   d. one dedup-heavy queue (64 distinct shapes, Q = 4096, N = 4000)
@@ -71,6 +78,29 @@ Headroom reclamation and the predictive estimators, after phase f:
      the trained predictor's), timed per training step and per refresh;
      then phase n's study with the trained estimator (the top-K kernel
      must launch).
+
+Faults, degradation, migration and the guard, after phase o, on phase
+3's trace and cluster through ``repro_torch.core.run`` with an explicit
+fault schedule (the benches' geometries cut to 24 slots):
+
+  p. flex-f with retry backoff 2 and jitter 2 under
+     ``crash_burst(24, 4000, slot=6, frac=0.4, duration=8,
+     warn_slots=3)``: (i) the fault-recovery bench's graceful
+     degradation, (ii) the same with its migration (bandwidth 256, a pool
+     of 1024); the queue kernel once per non-empty primary queue, the
+     top-K kernel once per migration sweep, tasks fault-evicted and (ii)
+     migrated; decisions/s, ms a slot and the migration pass's ms a slot;
+     ``analysis.fault_recovery`` of both and (ii)'s retention against
+     (i)'s; the first 8 slots of (ii) on the plain path equal to the
+     kernel path's: placements, admit slots and every counter.
+  q. flex-f with ``ewma``, reclamation (a pool of 4096) and the guard
+     bench's ``GuardConfig`` (its threshold and cooldown cut to this
+     cluster and horizon, ``GUARD``) under ``usage_surge(24, 4000,
+     start=4, ramp=6, hold=4, peak_mult=2.0)``: the breaker first trips
+     on the ramp, the reclaim pool is not admitted while it is OPEN and
+     the deferral grows, the half-open probe after the surge passes at
+     most ``probe_reclaim`` candidates a slot through the top-K kernel;
+     the trip statistic per slot; the first 8 slots on both paths equal.
 
 The serving path (launch/serve.py over ServeEngine) at stablelm-3b's full
 width, after phase a and after phase f:
@@ -167,6 +197,9 @@ WAVE_SLOTS = 12
 # under a current-like estimate (phase o) the pool stays empty for the
 # first dozen slots or more, and an empty pool launches no sweep.
 RECLAIM_SLOTS = 27
+# Depth of the plain-path runs of phases p and q: their first 8 slots hold
+# the drain (slots 3-5), the crash's onset (slot 6) and the breaker's trip.
+FAULT_SLOTS = 8
 # Phase a's sizes, and the width of the synthetic queues of phases a, d, f
 # (the study's compacted queues hold about 4,100-5,100 tasks a slot; 64 is
 # the dedup's bucket count, 2 the serving engine's replica count).
@@ -216,6 +249,32 @@ def _tables(n: int, gen: torch.Generator, dev, tied: bool):
                                                           res * 10, src))
         res = res / 8
     return est.contiguous(), res.contiguous(), src.contiguous()
+
+
+def _fault_offset(n: int, gen: torch.Generator, dev):
+    """(N,) offsets of the simulator's fault masking
+    (``admission.fault_load_offset``): about 30% of the rows down or
+    draining at DRAIN_LOAD, 20% flapped to half capacity, the rest 0."""
+    from repro_torch.api.admission import DRAIN_LOAD
+
+    kind = torch.rand(n, generator=gen, device=dev)
+    return torch.where(kind < 0.3, DRAIN_LOAD,
+                       torch.where(kind < 0.5, 1.0 - 0.5, 0.0))
+
+
+def _check_drained(what: str, offset, placements, reserved_in,
+                   reserved_out) -> None:
+    """No task landed on a DRAIN_LOAD row, and those rows kept their
+    reserved values exactly."""
+    from repro_torch.api.admission import DRAIN_LOAD
+
+    drained = offset == DRAIN_LOAD
+    picked = placements[placements >= 0].long()
+    if drained[picked].any():
+        raise AssertionError(f"{what}: a task landed on a drained node")
+    if reserved_out is not None and not torch.equal(
+            reserved_out[drained], reserved_in[drained]):
+        raise AssertionError(f"{what}: a drained row's reserved changed")
 
 
 def _tasks(count: int, gen: torch.Generator, dev):
@@ -298,8 +357,11 @@ def kernel_vs_plain(dev) -> dict:
     gen.manual_seed(0)
     worst = 0.0
     for n in (4000, 4097, 100000):
-        for tied in (False, True):
-            est, res, src = _tables(n, gen, dev, tied)
+        for tied in (False, True, "faulted"):
+            est, res, src = _tables(n, gen, dev, tied is True)
+            if tied == "faulted":
+                offset = _fault_offset(n, gen, dev)
+                res = (res + offset[:, None]).contiguous()
             k_idx, k_score, p_idx, p_score = [], [], [], []
             for r, penalty, cap, w_load, w_src in _tasks(100, gen, dev):
                 task = pack_task(r, penalty, cap, w_load, w_src, dev)
@@ -323,6 +385,9 @@ def kernel_vs_plain(dev) -> dict:
                 raise AssertionError(
                     f"flex_score N={n} tied={tied}: scores differ in bits")
             worst = max(worst, float((k_score - p_score).abs().max()))
+            if tied == "faulted":
+                _check_drained(f"flex_score N={n} faulted", offset, k_idx,
+                               None, None)
             log(f"[kernel] flex_score N={n} tied={tied}: 100 tasks, index "
                 f"and score bit-equal to the plain version "
                 f"({int((k_idx < 0).sum())} with no feasible node)")
@@ -394,10 +459,14 @@ def queue_kernel_vs_plain(dev, pick: dict) -> dict:
     worst = 0.0
     for n in QUEUE_NS:
         rows_per_cta, on_chip, smem = fs.admit_plan(n, 2)
-        for tied in (False, True):
-            state = _queue_state(n, gen, dev, tied)
+        for tied in (False, True, "faulted"):
+            state = _queue_state(n, gen, dev, tied is True)
+            if tied == "faulted":
+                offset = _fault_offset(n, gen, dev)
+                state[1] = (state[1] + offset[:, None]).contiguous()
             for q in QUEUE_QS:
-                mat = _task_mat(*_task_rows(q, gen, dev))
+                mat = _task_mat(*_task_rows(q, gen, dev,
+                                            brownout=tied == "faulted"))
                 srcs = (torch.rand(q, generator=gen, device=dev)
                         * (8 if tied else 64)).int()
                 valid = torch.rand(q, generator=gen, device=dev) < 0.85
@@ -416,6 +485,8 @@ def queue_kernel_vs_plain(dev, pick: dict) -> dict:
                         raise AssertionError(f"{what}: {name} differs")
                     if a.dtype == torch.float32:
                         worst = max(worst, float((a - b).abs().max()))
+                if tied == "faulted":
+                    _check_drained(what, offset, k_pl, state[1], got[1])
                 log(f"[queue] {what}: placements and every node-state leaf "
                     f"bit-equal to admit_queue_ref ({int((k_pl >= 0).sum())}"
                     f" placed, {int((~valid).sum())} invalid; {rows_per_cta}"
@@ -465,14 +536,20 @@ def queue_kernel_vs_plain(dev, pick: dict) -> dict:
 # phase a: the batched kernels against plain
 # ---------------------------------------------------------------------------
 
-def _task_rows(q: int, gen: torch.Generator, dev):
+def _task_rows(q: int, gen: torch.Generator, dev, brownout: bool = False):
     """(r (Q, 2), penalty, cap, w_load, w_src (Q,)) in _tasks' five kinds,
-    row by row."""
+    row by row; with ``brownout``, flex-brownout's per-task caps instead
+    (production 1, batch ``clip(1 - 0.25 (P - 1), 0.2, 1)``)."""
+    from repro_torch.core.numerics import fma
+
     u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
     kind = torch.arange(q, device=dev) % 5
     r = u(q, 2) * 0.2 + (kind == 1)[:, None] * 2.0      # fits nowhere
     penalty = 1.0 + u(q)
     cap = torch.where(kind == 2, 0.5, 1.0)               # cap < 1
+    if brownout:
+        batch_cap = torch.clamp(fma(-0.25, penalty - 1.0, 1.0), 0.2, 1.0)
+        cap = torch.where(u(q) < 0.5, 1.0, batch_cap)
     w_load = torch.where(kind == 3, -1.0,                # best fit
                          torch.where(kind == 4, 0.5 + u(q), 1.0))
     w_src = torch.where(kind == 3, 0.0, torch.where(kind == 4, u(q), 0.25))
@@ -548,19 +625,27 @@ def batch_kernels_vs_plain(dev) -> list:
         log(f"[batch] {what}: argmax and top-K (K in {ks}) bit-equal to "
             f"the plain versions ({int((col0 < 0).sum())} tasks fit "
             f"nowhere; {splits} chunk(s) of {chunk} nodes, {blocks} blocks)")
+        return torch.cat([col0, got[0].flatten()])
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     for n in BATCH_NS:
-        for tied in (False, True):
-            est, res, _ = _tables(n, gen, dev, tied)
+        for tied in (False, True, "faulted"):
+            est, res, _ = _tables(n, gen, dev, tied is True)
+            if tied == "faulted":
+                offset = _fault_offset(n, gen, dev)
+                res = (res + offset[:, None]).contiguous()
             for q in BATCH_QS:
                 src = torch.rand((q, n), generator=gen, device=dev)
-                if tied:
+                if tied is True:
                     src = torch.floor(src * 4) / 4
                 ks = (1, 8, 40) if (n, q) == (4097, 33) else (1, 8)
-                check(f"N={n} Q={q} tied={tied}", est, res, src,
-                      _task_rows(q, gen, dev), ks)
+                picks = check(f"N={n} Q={q} tied={tied}", est, res, src,
+                              _task_rows(q, gen, dev,
+                                         brownout=tied == "faulted"), ks)
+                if tied == "faulted":
+                    _check_drained(f"batch N={n} Q={q} faulted", offset,
+                                   picks.flatten(), None, None)
             del src
     # The kernels' instance with R read at run time: three resources, and
     # two on a table that does not start on 16 bytes.
@@ -654,10 +739,17 @@ def _check_result(res, cfg, n_tasks: int) -> None:
         raise AssertionError("placement out of range")
 
 
+# The integer and state series of a run, compared exactly.
+COUNTERS = ("n_running", "n_rejected", "n_reclaimed", "n_fault_evicted",
+            "n_degrade_evicted", "degraded", "n_migrated",
+            "n_migration_failed", "guard_tripped", "n_guard_deferred")
+
+
 def small_run_against_cpu(dev, mode: str = "sequential",
-                          policy: str = "flex-f", **cfg_kw):
+                          policy: str = "flex-f", schedule=None, **cfg_kw):
     """The same replayed-noise run on the card and on the CPU; returns the
-    card's result."""
+    card's result.  ``schedule(device)`` gives a fault schedule; a
+    retry-jitter table is replayed when the config asks for jitter."""
     import numpy as np
 
     from repro_torch.convert import noise_table_from_numpy
@@ -669,17 +761,22 @@ def small_run_against_cpu(dev, mode: str = "sequential",
     for device in (dev, torch.device("cpu")):
         ts = generate_calibrated(0, cfg.n_nodes, cfg.n_slots, OFFERED_LOAD,
                                  device=device)
-        table = np.random.default_rng(0).standard_normal(
+        rng = np.random.default_rng(0)
+        table = rng.standard_normal(
             (cfg.n_slots, ts.num_tasks)).astype(np.float32)
-        out[device.type] = run(ts, cfg, policy, device=device,
-                               noise=noise_table_from_numpy(table,
-                                                            device=device))
+        jitter = (rng.integers(0, cfg.retry_jitter + 1, ts.num_tasks)
+                  if cfg.retry_jitter else None)
+        out[device.type] = run(
+            ts, cfg, policy, device=device,
+            noise=noise_table_from_numpy(table, jitter=jitter,
+                                         device=device),
+            fault_schedule=None if schedule is None else schedule(device))
     gpu, cpu = out["cuda"], out["cpu"]
     _check_result(gpu, cfg, gpu.placement.shape[0])
     for name in ("placement", "admit_slot", "qos_ok_slots", "active_slots"):
         if not torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)):
             raise AssertionError(f"small run: {name} differs GPU vs CPU")
-    for name in ("n_rejected", "n_reclaimed"):
+    for name in COUNTERS + ("guard_err_q",):
         if not torch.equal(getattr(gpu.metrics, name).cpu(),
                            getattr(cpu.metrics, name)):
             raise AssertionError(f"small run: metrics.{name} differs")
@@ -687,12 +784,44 @@ def small_run_against_cpu(dev, mode: str = "sequential",
         a, b = getattr(gpu.metrics, name).cpu(), getattr(cpu.metrics, name)
         if not torch.allclose(a, b, rtol=1e-6, atol=1e-6):
             raise AssertionError(f"small run: metrics.{name} differs")
+    m = gpu.metrics
     log(f"[small] {policy} {mode} N={cfg.n_nodes} S={cfg.n_slots} "
-        f"{json.dumps(cfg_kw, sort_keys=True)}, replayed noise: GPU "
-        f"placements equal the CPU port's "
+        f"{json.dumps(cfg_kw, sort_keys=True, default=repr)}, replayed "
+        f"noise: GPU placements and counters equal the CPU port's "
         f"({int((gpu.placement >= 0).sum())} admitted, "
-        f"{int(gpu.metrics.n_reclaimed[-1])} of them reclaimed)")
+        f"{int(m.n_reclaimed[-1])} of them reclaimed; "
+        f"{int(m.n_fault_evicted[-1])} fault-evicted, "
+        f"{int(m.n_degrade_evicted[-1])} shed, {int(m.n_migrated[-1])} "
+        f"migrated, {int(m.n_migration_failed[-1])} failed; breaker "
+        f"{m.guard_tripped.tolist()})")
     return gpu
+
+
+def small_faults_against_cpu(dev):
+    """Phase 4's run with faults: flex-brownout under a crash burst with a
+    drain warning, graceful degradation, migration, the guard,
+    reclamation, backoff and jitter, on the card and on the CPU."""
+    from repro_torch.faults import FaultConfig, crash_burst
+    from repro_torch.guard import GuardConfig
+    from repro_torch.migration import MigrationConfig
+
+    n, n_slots = SMALL["n_nodes"], SMALL["n_slots"]
+    res = small_run_against_cpu(
+        dev, "sequential", "flex-brownout",
+        schedule=lambda device: crash_burst(n_slots, n, slot=3, frac=0.4,
+                                            duration=4, warn_slots=2,
+                                            device=device),
+        faults=FaultConfig(degrade=True, qos_window=4, degrade_evict=8),
+        migration=MigrationConfig(bandwidth=8, pool_size=16),
+        guard=GuardConfig(window=4, trip_threshold=0.2, cooldown=3,
+                          probe_slots=2, probe_reclaim=4),
+        estimator="ewma", reclamation=True, reclaim_pool=64,
+        retry_backoff=2, retry_jitter=2)
+    m = res.metrics
+    if not (int(m.n_fault_evicted[-1]) and int(m.n_migrated[-1])
+            and (m.guard_tripped == 1).any()):
+        raise AssertionError("the small fault run evicted, migrated or "
+                             "tripped nothing")
 
 
 def _same_decisions(what: str, res, ref, n_slots=None) -> None:
@@ -1131,45 +1260,52 @@ def _reclaim_config(n_slots: int):
                          n_slots=n_slots)
 
 
-def _timed_reclaim_run(exp):
-    """``_timed_run`` with each reclaim pass timed on the host clock
-    (synchronised before and after, which the run's wall time includes).
-    Returns (result, wall s, counts, [(pool entries, pass s)...])."""
+def _timed_passes(go):
+    """Run ``go()`` (one study) with every migrate and reclaim pass timed
+    on the host clock (synchronised before and after, which the run's
+    wall time includes).  Returns (result, wall s, counts,
+    [(pass, entries, s)...] in call order)."""
     from repro_torch.api import ReclaimPolicy, admission
 
     passes = []
     admit = admission.admit_queue
 
     def timed_admit(policy, node, requests, *args, **kw):
-        if not isinstance(policy, ReclaimPolicy):
+        if not isinstance(policy, ReclaimPolicy):   # migrate too
             return admit(policy, node, requests, *args, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = admit(policy, node, requests, *args, **kw)
         torch.cuda.synchronize()
-        passes.append((requests.shape[0], time.perf_counter() - t0))
+        passes.append((policy.name, requests.shape[0],
+                       time.perf_counter() - t0))
         return out
 
     admission.admit_queue = timed_admit
     try:
-        res, wall, c = _timed_run(exp)
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = go()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     finally:
         admission.admit_queue = admit
-    return res, wall, c, passes
+    return res, wall, _counts(), passes
 
 
-def _check_reclaim_launches(what: str, c: dict, passes) -> int:
-    """The primary queues went through the queue kernel, the reclaim
-    passes through the top-K kernel; returns the primary queues."""
-    primary = c["queues"] - sum(q > 0 for q, _ in passes)
+def _check_pass_launches(what: str, c: dict, passes,
+                         sweeps: bool = True) -> int:
+    """Primary queues through the queue kernel, the migrate and reclaim
+    passes through the top-K kernel (at least once with ``sweeps``);
+    returns the primary queues."""
+    primary = c["queues"] - sum(q > 0 for _, q, _ in passes)
     if primary == 0 or c["queue"] != primary:
         raise AssertionError(f"{what}: flex_score_admit launched "
                              f"{c['queue']} times for {primary} non-empty "
                              f"primary queues")
-    if c["sweeps"] == 0 or c["topk"] != c["sweeps"]:
+    if (sweeps and c["sweeps"] == 0) or c["topk"] != c["sweeps"]:
         raise AssertionError(f"{what}: flex_score_batch_topk launched "
-                             f"{c['topk']} times for {c['sweeps']} reclaim "
-                             f"sweeps")
+                             f"{c['topk']} times for {c['sweeps']} sweeps")
     if c["pick"] or c["batch"]:
         raise AssertionError(f"{what}: another kernel launched")
     return primary
@@ -1193,10 +1329,11 @@ def reclaim_end_to_end(dev, ts, res_seq, seq_rate) -> dict:
     from repro_torch.traces import analysis
 
     cfg = _reclaim_config(RECLAIM_SLOTS)
-    res, wall, c, passes = _timed_reclaim_run(
-        Experiment(ts, cfg, "flex-f", device=dev))
+    exp = Experiment(ts, cfg, "flex-f", device=dev)
+    res, wall, c, passes = _timed_passes(lambda: exp.run(seeds=0))
     _check_result(res, cfg, ts.num_tasks)
-    primary = _check_reclaim_launches("phase n", c, passes)
+    primary = _check_pass_launches("phase n", c, passes)
+    passes = [(q, t) for _, q, t in passes]
     m = res.metrics
     reclaimed = int(m.n_reclaimed[-1])
     if reclaimed <= 0:
@@ -1236,9 +1373,9 @@ def reclaim_end_to_end(dev, ts, res_seq, seq_rate) -> dict:
         summary = analysis.summarize(ts, res, 0.99)
     log("[reclaim] summary: " + json.dumps(summary, sort_keys=True))
 
-    res_p, wall_p, c_p, _ = _timed_reclaim_run(Experiment(
-        ts, cfg._replace(use_kernel=False, n_slots=PLAIN_SLOTS), "flex-f",
-        device=dev))
+    exp = Experiment(ts, cfg._replace(use_kernel=False, n_slots=PLAIN_SLOTS),
+                     "flex-f", device=dev)
+    res_p, wall_p, c_p, _ = _timed_passes(lambda: exp.run(seeds=0))
     if c_p["queue"] or c_p["pick"]:
         raise AssertionError("phase n's plain path launched a pick kernel")
     _same_decisions("phase n use_kernel=False", res_p, res, PLAIN_SLOTS)
@@ -1311,10 +1448,10 @@ def learned_end_to_end(dev, ts) -> dict:
         f"events, eager)")
 
     cfg = _reclaim_config(RECLAIM_SLOTS)
-    res, wall, c, passes = _timed_reclaim_run(
-        Experiment(ts, cfg, "flex-f", device=dev, estimator=restored))
+    exp = Experiment(ts, cfg, "flex-f", device=dev, estimator=restored)
+    res, wall, c, passes = _timed_passes(lambda: exp.run(seeds=0))
     _check_result(res, cfg, ts.num_tasks)
-    _check_reclaim_launches("phase o", c, passes)
+    _check_pass_launches("phase o", c, passes)
     log(f"[learned] flex-f + trained learned + reclamation N={n} "
         f"S={cfg.n_slots}: {c['decisions']} decisions in {wall:.2f} s = "
         f"{c['decisions'] / wall:.1f} decisions/s; "
@@ -1322,6 +1459,218 @@ def learned_end_to_end(dev, ts) -> dict:
         f"{int(res.metrics.n_reclaimed[-1])} reclaimed; {c['queue']} "
         f"flex_score_admit and {c['topk']} flex_score_batch_topk launches "
         f"({c['sweeps']} sweeps)")
+    return {"flex_score_admit": c["queue"],
+            "flex_score_batch_topk": c["topk"]}
+
+
+# ---------------------------------------------------------------------------
+# phases p and q: faults, degradation, migration and the guard
+# ---------------------------------------------------------------------------
+
+# Counters that grow when a placed task leaves its node (evicted or
+# migrated), which changes its final placement and admit slot.
+MOVES = ("n_fault_evicted", "n_degrade_evicted", "n_migrated",
+         "n_migration_failed")
+
+
+def _early_slots(what: str, dev, ts, cfg, sched, full) -> None:
+    """Phases p and q's check of their first FAULT_SLOTS slots: the plain
+    path run to that depth against the full kernel run, every counter
+    series on the slots they share, and the placements and admit slots as
+    ``_same_decisions`` compares them.  Where the full run evicts or
+    migrates after those slots, a task placed early may end elsewhere, so
+    the placements are held against a kernel run of the same depth."""
+    from repro_torch.core import run
+
+    cfg = cfg._replace(n_slots=FAULT_SLOTS)
+    plain, wall_p, c_p, _ = _timed_passes(lambda: run(
+        ts, cfg._replace(use_kernel=False), "flex-f", device=dev,
+        fault_schedule=sched))
+    if c_p["queue"] or c_p["pick"]:
+        raise AssertionError(f"{what}: the plain path launched a pick "
+                             f"kernel")
+    for name in COUNTERS + ("qos", "penalty", "guard_err_q"):
+        a = getattr(plain.metrics, name)
+        if not torch.equal(a, getattr(full.metrics, name)[:a.shape[0]]):
+            raise AssertionError(f"{what}: metrics.{name} of the first "
+                                 f"{FAULT_SLOTS} slots differs between the "
+                                 f"plain path and the kernel run")
+    later = [name for name in MOVES
+             if getattr(full.metrics, name).numel()
+             and int(getattr(full.metrics, name)[-1])
+             != int(getattr(full.metrics, name)[FAULT_SLOTS - 1])]
+    if later:
+        kernel, wall_k, _, _ = _timed_passes(
+            lambda: run(ts, cfg, "flex-f", device=dev, fault_schedule=sched))
+        for name in ("placement", "admit_slot", "qos_ok_slots",
+                     "active_slots"):
+            if not torch.equal(getattr(plain, name), getattr(kernel, name)):
+                raise AssertionError(f"{what}: {name} differs between the "
+                                     f"plain and the kernel path")
+        against = (f"a kernel run of the same depth ({wall_k:.2f} s; the "
+                   f"full run's {', '.join(later)} grow later)")
+    else:
+        _same_decisions(what, plain, full, FAULT_SLOTS)
+        against = "the full kernel run"
+    log(f"[{what}] the first {FAULT_SLOTS} slots: the plain path "
+        f"({wall_p:.2f} s) makes the full kernel run's counters, and the "
+        f"placements and admit slots of {against}")
+
+
+def _fault_config(migrate: bool):
+    """Phase p's runs: flex-f with backoff and jitter under the bench's
+    graceful degradation (benchmarks/bench_fault_recovery.py
+    ``_GRACEFUL``); (ii) adds its warning and ``_MIGRATION``."""
+    from repro_torch.core import SimConfig
+    from repro_torch.faults import FaultConfig
+    from repro_torch.migration import MigrationConfig
+
+    graceful = FaultConfig(degrade=True, qos_window=8, degrade_evict=16,
+                           degrade_spare_production=True)
+    cfg = SimConfig(**FULL, use_kernel=True, retry_backoff=2, retry_jitter=2,
+                    faults=graceful)
+    if migrate:
+        cfg = cfg._replace(faults=graceful._replace(warn_slots=3),
+                           migration=MigrationConfig(
+                               bandwidth=256, pool_size=1024,
+                               migrate_cost=1))
+    return cfg
+
+
+def fault_end_to_end(dev, ts, seq_rate) -> dict:
+    """Phase p; returns both runs' launches by kernel name."""
+    from repro_torch.core import run
+    from repro_torch.faults import crash_burst
+    from repro_torch.traces import analysis
+
+    n, n_slots = FULL["n_nodes"], FULL["n_slots"]
+    sched = crash_burst(n_slots, n, slot=6, frac=0.4, duration=8,
+                        warn_slots=3, device=dev)
+    launches = {"flex_score_admit": 0, "flex_score_batch_topk": 0}
+    recovery = {}
+    for name, migrate in (("(i) graceful", False),
+                          ("(ii) graceful + migration", True)):
+        cfg = _fault_config(migrate)
+        res, wall, c, passes = _timed_passes(
+            lambda: run(ts, cfg, "flex-f", device=dev, fault_schedule=sched))
+        _check_result(res, cfg, ts.num_tasks)
+        primary = _check_pass_launches(f"phase p {name}", c, passes,
+                                       sweeps=migrate)
+        m = res.metrics
+        if not migrate and int(m.n_fault_evicted[-1]) <= 0:
+            raise AssertionError(f"phase p {name}: the crash evicted "
+                                 f"nothing")
+        mig = [(q, t) for kind, q, t in passes if kind == "migrate"]
+        if migrate and int(m.n_migrated[-1]) <= 0:
+            raise AssertionError(f"phase p {name}: nothing migrated")
+        n_mig = sum(q for q, _ in mig)
+        log(f"[fault] flex-f {name} N={n} S={n_slots}, crash_burst(slot=6, "
+            f"frac=0.4, duration=8, warn_slots=3), backoff 2, jitter 2: "
+            f"{c['decisions']} decisions ({c['decisions'] - n_mig} primary) "
+            f"in {wall:.2f} s = {c['decisions'] / wall:.1f} decisions/s "
+            f"(phase 3: {seq_rate:.1f}), {wall * 1e3 / n_slots:.1f} ms a "
+            f"slot; {c['queue']} flex_score_admit launches for {primary} "
+            f"primary queues, {c['topk']} flex_score_batch_topk launches "
+            f"for {c['sweeps']} sweeps")
+        if migrate:
+            log(f"[fault] the migration pass: "
+                f"{sum(t for _, t in mig) * 1e3 / n_slots:.2f} ms a slot "
+                f"on average over {n_slots} slots, {n_mig} attempts; per "
+                f"pass (entries, ms): "
+                + ", ".join(f"({q}, {t * 1e3:.1f})" for q, t in mig))
+        log(f"[fault] {name} per slot: fault-evicted "
+            f"{m.n_fault_evicted.tolist()}, shed "
+            f"{m.n_degrade_evicted.tolist()}, migrated "
+            f"{m.n_migrated.tolist()}, migration failed "
+            f"{m.n_migration_failed.tolist()}, QoS "
+            f"{[round(x, 4) for x in m.qos.tolist()]}")
+        recovery[name] = analysis.fault_recovery(res, 0.99)
+        log(f"[fault] fault_recovery {name}: "
+            + json.dumps(recovery[name], sort_keys=True))
+        for k in launches:
+            launches[k] += c["queue" if k == "flex_score_admit" else "topk"]
+        full = res
+    retained = [r["retained_task_slots"] for r in recovery.values()]
+    log(f"[fault] retained task-slots (ii) / (i): {retained[1]} / "
+        f"{retained[0]} = {retained[1] / max(retained[0], 1):.4f}")
+    _early_slots("fault", dev, ts, _fault_config(True), sched, full)
+    return launches
+
+
+# The guard bench's config (benchmarks/bench_guard.py ``_GUARD``), cut to
+# the paper's cluster and the 24-slot horizon.  The bench's threshold,
+# 0.118, sits between the steady-state and the mid-ramp drift of its
+# 512-node cluster; at 4000 nodes (H100, 700 W) the drift reaches 0.1329
+# while the cluster fills, before the ramp (slot 3), and 0.2453 mid-ramp
+# (slot 7), so the phase trips at 0.19, between the two.  The bench's
+# cooldown, 48 slots, covers its up-ramp, hold and down-ramp (16 + 16 +
+# 16); the phase's surge is cut to 6 + 4 + 6 and the cooldown with it to
+# 16, so the half-open probe lands on the slots after the surge.
+GUARD = dict(window=8, err_quantile=0.9, trip_threshold=0.19, cooldown=16,
+             probe_slots=8, probe_reclaim=8, open_blend=1.0, guard_scale=1.0)
+
+
+def guard_end_to_end(dev, ts) -> dict:
+    """Phase q; returns the run's launches by kernel name."""
+    from repro_torch.core import SimConfig, run
+    from repro_torch.faults import usage_surge
+    from repro_torch.guard import HALF_OPEN, OPEN, GuardConfig
+    from repro_torch.traces import analysis
+
+    n, n_slots = FULL["n_nodes"], FULL["n_slots"]
+    start, ramp, hold = 4, 6, 4
+    sched = usage_surge(n_slots, n, start=start, ramp=ramp, hold=hold,
+                        peak_mult=2.0, device=dev)
+    cfg = SimConfig(**FULL, use_kernel=True, estimator="ewma",
+                    reclamation=True, reclaim_pool=FULL["arrivals_per_slot"],
+                    guard=GuardConfig(**GUARD))
+    res, wall, c, passes = _timed_passes(
+        lambda: run(ts, cfg, "flex-f", device=dev, fault_schedule=sched))
+    _check_result(res, cfg, ts.num_tasks)
+    primary = _check_pass_launches("phase q", c, passes)
+    m = res.metrics
+    rep = analysis.guard_report(res)
+    states = m.guard_tripped.tolist()
+    deferred = m.n_guard_deferred.tolist()
+    err_q = m.guard_err_q.tolist()
+    after = start + 2 * ramp + hold     # the first slot after the surge
+    log(f"[guard] flex-f + ewma + reclamation (pool {cfg.reclaim_pool}) + "
+        f"guard N={n} S={n_slots}, usage_surge(start={start}, ramp={ramp}, "
+        f"hold={hold}, peak 2.0): {c['decisions']} decisions in "
+        f"{wall:.2f} s, {wall * 1e3 / n_slots:.1f} ms a slot; {c['queue']} "
+        f"flex_score_admit launches for {primary} primary queues, "
+        f"{c['topk']} flex_score_batch_topk launches for {c['sweeps']} "
+        f"sweeps")
+    log(f"[guard] breaker per slot {states}; trip statistic per slot "
+        f"{[round(x, 4) for x in err_q]} (before the ramp, slot "
+        f"{start - 1}: {err_q[start - 1]:.4f}; mid-ramp, slot "
+        f"{start + ramp // 2}: {err_q[start + ramp // 2]:.4f}; after the "
+        f"surge, slots {after}-{n_slots - 1}: at most "
+        f"{max(err_q[after:]):.4f}; threshold {GUARD['trip_threshold']}); "
+        f"deferred {deferred}")
+    log("[guard] guard_report: " + json.dumps(rep, sort_keys=True))
+    opened = [s for s, st in enumerate(states) if st == OPEN]
+    half = [s for s, st in enumerate(states) if st == HALF_OPEN]
+    if rep["guard_trips"] < 1 or not start <= opened[0] < start + ramp:
+        raise AssertionError(f"phase q: the breaker did not first trip on "
+                             f"the ramp (slots {start}-{start + ramp - 1})")
+    reclaim = [q for kind, q, _ in passes if kind == "reclaim"]
+    if len(reclaim) != n_slots:
+        raise AssertionError("phase q: not one reclaim pass a slot")
+    if any(reclaim[s] for s in opened):
+        raise AssertionError("phase q: the reclaim pool was admitted while "
+                             "the breaker was OPEN")
+    before = deferred[opened[0] - 1]
+    if deferred[opened[-1]] <= before:
+        raise AssertionError("phase q: nothing deferred while OPEN")
+    probe = [reclaim[s] for s in half]
+    if not probe or max(probe) > GUARD["probe_reclaim"] or not any(probe):
+        raise AssertionError(f"phase q: the half-open probe admitted "
+                             f"{probe} candidates a slot (at most "
+                             f"{GUARD['probe_reclaim']}, some)")
+    log(f"[guard] OPEN over slots {opened[0]}-{opened[-1]}, HALF_OPEN over "
+        f"{half[0]}-{half[-1]}; the probe passed {probe} candidates a slot")
+    _early_slots("guard", dev, ts, cfg, sched, res)
     return {"flex_score_admit": c["queue"],
             "flex_score_batch_topk": c["topk"]}
 
@@ -2173,17 +2522,22 @@ def main() -> int:
                                               res_seq)
     timed("d", dedup_queue)
     timed("4", small_run_against_cpu, "sequential")
+    timed("4 (faults)", small_faults_against_cpu)
     timed("e", small_run_against_cpu, "wavefront")
     launches["flex_score_pick"] = timed("5", profile_decisions)
     timed("5 (study)", profile_study, ts)
     timed("f", profile_wavefront)
     recl = timed("n", reclaim_end_to_end, ts, res_seq, seq_rate)
     learned = timed("o", learned_end_to_end, ts)
-    log(f"[reclaim] launches on the reclamation path: phase n "
-        f"flex_score_admit {recl['flex_score_admit']}, flex_score_batch_topk "
-        f"{recl['flex_score_batch_topk']}; phase o flex_score_admit "
-        f"{learned['flex_score_admit']}, flex_score_batch_topk "
-        f"{learned['flex_score_batch_topk']}")
+    faults = timed("p", fault_end_to_end, ts, seq_rate)
+    guard = timed("q", guard_end_to_end, ts)
+    for phase, c in (("n", recl), ("o", learned), ("p", faults),
+                     ("q", guard)):
+        log(f"[launches] phase {phase}: flex_score_admit "
+            f"{c['flex_score_admit']}, flex_score_batch_topk "
+            f"{c['flex_score_batch_topk']}")
+        for name, count in c.items():
+            launches[name] += count
     launches["flash_attention"], serve_runs = timed("h", serve_end_to_end)
     timed("i", prefill_vs_decode)
     timed("j", profile_serving)

@@ -9,9 +9,11 @@ from repro_torch.api.admission import (  # noqa: F401
     admit_queue_wavefront,
     committed_load,
     dominant,
+    fault_load_offset,
     fits,
     least_loaded_score,
     mask_infeasible,
+    mask_unavailable,
     pick_node,
     usage_load,
 )
@@ -34,9 +36,11 @@ from repro_torch.api.registry import (  # noqa: F401
 from repro_torch.api.policies import (  # noqa: F401
     AimdPenaltyController,
     BestFitUsagePolicy,
+    BrownoutPolicy,
     FlexFifoPolicy,
     FlexLrfPolicy,
     LeastFitPolicy,
+    MigratePolicy,
     OversubPolicy,
     PriorityFlexPolicy,
     ReclaimPolicy,

@@ -68,6 +68,22 @@ def usage_load(est_usage, reserved, penalty):
     return fma(penalty, est_usage, reserved)
 
 
+def fault_load_offset(node_up, capacity, drain_load=DRAIN_LOAD):
+    """(N,) load offset expressing node faults to every admission policy:
+    ``drain_load`` on a down node (every capacity filter rejects it),
+    the lost fraction ``1 - capacity`` on a flapped one, and exactly 0.0
+    on a healthy one, so the identity schedule changes nothing."""
+    return torch.where(node_up, 1.0 - capacity,
+                       drain_load).to(capacity.dtype)
+
+
+def mask_unavailable(node: NodeState, offset) -> NodeState:
+    """Fold a per-node fault offset into the reservations, which both load
+    models and every kernel read.  The offset is constant within a slot,
+    the admission invariance the wavefront's conflict checks assume."""
+    return node._replace(reserved=node.reserved + offset[:, None])
+
+
 def fits(load, request, capacity):
     """Capacity filter: ``load + request <= capacity`` on every resource."""
     return (load + request <= capacity).all(dim=-1)

@@ -1,10 +1,9 @@
 """Built-in policies and the penalty controller (port of ``repro.api.policies``).
 
-The paper's four policies (LeastFit, Oversub, FlexF, FlexL), three
-registry extensions (best-fit-usage, flex-priority, and reclaim, the
-simulator's headroom-reclamation pass), with the reference's arithmetic,
-plus the AIMD penalty controller.  The migrate and flex-brownout policies
-come with the slices that use them.
+The paper's four policies (LeastFit, Oversub, FlexF, FlexL), five
+registry extensions (best-fit-usage, flex-priority, flex-brownout, and
+the simulator's reclaim and migrate passes), with the reference's
+arithmetic, plus the AIMD penalty controller.
 """
 from __future__ import annotations
 
@@ -230,6 +229,55 @@ class ReclaimPolicy(FlexFifoPolicy):
     def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
         penalty, _, w_load, w_src = super()._kernel_scalars(ctx, task)
         return penalty, self._cap(ctx), w_load, w_src
+
+
+@register_policy("migrate")
+@dataclasses.dataclass(frozen=True)
+class MigratePolicy(ReclaimPolicy):
+    """Live-migration targets: re-place a task resident on a draining or
+    overloaded node (``repro_torch.migration``).
+
+    The reclaim pass's template: FlexF's score, the cap ``1 - margin_scale
+    * P`` in the kernel template's ``cap`` scalar.  The sources need no
+    per-task exclusion: the pass puts ``DRAIN_LOAD`` on every draining
+    node's reserved row first (``admission.mask_unavailable``), and the
+    cap filter rejects those rows for every task.
+    """
+
+    name = "migrate"
+    margin_scale: float = 0.0
+
+
+@register_policy("flex-brownout")
+@dataclasses.dataclass(frozen=True)
+class BrownoutPolicy(FlexFifoPolicy):
+    """QoS-pressure brownout: batch tasks may fill a node only up to
+    ``clip(1 - brownout_scale * (P - p_min), floor, 1)``, production and
+    system tasks to full capacity, so batch admission browns out as the
+    penalty rises.  The cap depends on the task's priority and rides the
+    kernel template's per-task ``cap`` column (the queue kernel's task
+    rows, the batched sweeps' task matrix).
+    """
+
+    name = "flex-brownout"
+    brownout_scale: float = 0.25
+    floor: float = 0.2
+
+    def _cap(self, ctx: PolicyContext, task: TaskView) -> torch.Tensor:
+        # Rounded once: the jitted reference contracts 1 - s * (P - p_min).
+        batch_cap = torch.clamp(
+            fma(-self.brownout_scale, ctx.penalty - ctx.params.p_min, 1.0),
+            self.floor, 1.0)
+        return torch.where(task.priority >= CLASS_PRODUCTION, 1.0,
+                           batch_cap).to(torch.float32)
+
+    def feasible(self, ctx: PolicyContext, task: TaskView) -> torch.Tensor:
+        return admission.fits(self._load(ctx), task.request,
+                              self._cap(ctx, task))
+
+    def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
+        penalty, _, w_load, w_src = super()._kernel_scalars(ctx, task)
+        return penalty, self._cap(ctx, task), w_load, w_src
 
 
 def resolve_estimator(est, noise_std: float = 0.0):

@@ -17,7 +17,7 @@ from repro_torch.core.noise import ReplayNoise
 from repro_torch.core.types import FlexParams, NodeState, TaskSet
 
 _INT_FIELDS = {"arrival", "duration", "priority", "src", "n_tasks",
-               "src_count"}
+               "src_count", "jitter"}
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
@@ -53,10 +53,37 @@ def node_state_from_numpy(arrays: Mapping[str, np.ndarray], *,
     return _build(NodeState, arrays, device)
 
 
-def noise_table_from_numpy(table: np.ndarray, *,
+def noise_table_from_numpy(table: np.ndarray, *, jitter=None,
                            device="cuda") -> ReplayNoise:
-    """(S, T) demand-noise table -> a :class:`ReplayNoise` source."""
-    return ReplayNoise(_tensor("noise", table, device))
+    """(S, T) demand-noise table, and optionally the reference's (T,)
+    retry-jitter table (``faults.jitter_table`` of its run key's jitter
+    stream), -> a :class:`ReplayNoise` source."""
+    return ReplayNoise(_tensor("noise", table, device),
+                       None if jitter is None
+                       else _tensor("jitter", jitter, device))
+
+
+def fault_schedule_from_numpy(schedule, *, device="cuda"):
+    """The reference's ``FaultSchedule`` (a NamedTuple or mapping of
+    array-likes; ``draining`` may be None) -> the port's, node_up and
+    draining bool, capacity and demand_mult float32."""
+    from repro_torch.faults.injection import FaultSchedule
+
+    if hasattr(schedule, "_asdict"):
+        schedule = schedule._asdict()
+    out = {}
+    for name in FaultSchedule._fields:
+        a = schedule.get(name)
+        if a is None:
+            if name != "draining":
+                raise KeyError(f"FaultSchedule: missing field {name}")
+            out[name] = None
+            continue
+        a = np.asarray(a)
+        a = a.astype(bool if name in ("node_up", "draining")
+                     else np.float32)
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return FaultSchedule(**out)
 
 
 def _leaf(a, device) -> torch.Tensor:

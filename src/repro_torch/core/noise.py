@@ -11,7 +11,13 @@ source instead:
   parity tests fill with the draws of the reference's key schedule.
 
 Decisions equal the reference's only under replay.  Replay covers the
-demand stream alone: an estimator that draws noise raises under it.
+demand stream and, when given one, the per-task retry-jitter table: an
+estimator that draws noise raises under it, and so does a sampled fault
+schedule (pass the reference's to the simulator as ``fault_schedule``).
+A generator source draws the fault schedule and the jitter table from
+generators of their own, as the reference takes them from streams of
+their own, so turning faults or jitter on leaves the demand draws as
+they were.
 """
 from __future__ import annotations
 
@@ -29,6 +35,20 @@ class NoiseSource(Protocol):
         """f32 standard normals for a noisy estimator at ``slot``."""
         ...
 
+    def jitter(self, n_tasks: int, jitter: int) -> torch.Tensor:
+        """(n_tasks,) i32 retry jitter in ``[0, jitter]``."""
+        ...
+
+    def faults(self, fcfg, n_slots: int, n_nodes: int):
+        """A fault schedule sampled at ``fcfg``'s rates."""
+        ...
+
+
+# Offsets of the fault and jitter generators' seeds from the run's seed:
+# the reference's fold_in stream constants.
+_FAULT_STREAM = 0x7FFFFFFF
+_JITTER_STREAM = 0x7FFFFFFE
+
 
 class GeneratorNoise:
     """Standard normals from a seeded ``torch.Generator``.
@@ -39,8 +59,13 @@ class GeneratorNoise:
 
     def __init__(self, seed: int, device="cuda"):
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.seed = int(seed)
+        self.gen = self._generator(0)
+
+    def _generator(self, stream: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed + stream)
+        return gen
 
     def _normal(self, shape) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.gen,
@@ -52,16 +77,34 @@ class GeneratorNoise:
     def estimate(self, slot: int, shape: Sequence[int]) -> torch.Tensor:
         return self._normal(shape)
 
+    def jitter(self, n_tasks: int, jitter: int) -> torch.Tensor:
+        from repro_torch.faults.injection import jitter_table
+        return jitter_table(self._generator(_JITTER_STREAM), n_tasks, jitter)
+
+    def faults(self, fcfg, n_slots: int, n_nodes: int):
+        from repro_torch.faults.injection import sample_schedule
+        return sample_schedule(fcfg, self._generator(_FAULT_STREAM),
+                               n_slots, n_nodes)
+
 
 class ReplayNoise:
-    """Serves row ``slot`` of an ``(S, T)`` float32 table of demand noise."""
+    """Serves row ``slot`` of an ``(S, T)`` float32 table of demand noise,
+    and a ``(T,)`` int32 retry-jitter table when given one."""
 
-    def __init__(self, table: torch.Tensor):
+    def __init__(self, table: torch.Tensor,
+                 jitter: torch.Tensor | None = None):
         if table.dim() != 2 or table.dtype != torch.float32:
             raise ValueError(
                 f"ReplayNoise needs an (S, T) float32 table, got "
                 f"{tuple(table.shape)} {table.dtype}")
+        if jitter is not None and (jitter.dtype != torch.int32
+                                   or tuple(jitter.shape)
+                                   != (table.shape[1],)):
+            raise ValueError(
+                f"ReplayNoise needs a ({table.shape[1]},) int32 jitter "
+                f"table, got {tuple(jitter.shape)} {jitter.dtype}")
         self.table = table
+        self.jitter_table = jitter
 
     def demand(self, slot: int, n_tasks: int) -> torch.Tensor:
         if slot >= self.table.shape[0] or n_tasks != self.table.shape[1]:
@@ -75,3 +118,23 @@ class ReplayNoise:
             "ReplayNoise replays demand noise only; a noisy estimator "
             "draws a stream it does not hold (use noise_std=0, or "
             "GeneratorNoise)")
+
+    def jitter(self, n_tasks: int, jitter: int) -> torch.Tensor:
+        if self.jitter_table is None:
+            raise ValueError(
+                "ReplayNoise holds no jitter table; replay the reference's "
+                "(convert.noise_table_from_numpy(..., jitter=...))")
+        return self.jitter_table
+
+    def faults(self, fcfg, n_slots: int, n_nodes: int):
+        from repro_torch.faults.injection import FaultSchedule
+
+        if (fcfg.crash_rate == fcfg.flap_rate == fcfg.surge_rate == 0
+                and (fcfg.burst_slot < 0 or fcfg.burst_frac == 0)):
+            # zero rates draw the identity schedule whatever the stream
+            return FaultSchedule.none(n_slots, n_nodes,
+                                      device=self.table.device)
+        raise ValueError(
+            "ReplayNoise samples no fault schedule; pass the reference's "
+            "as simulate(..., fault_schedule=...) "
+            "(convert.fault_schedule_from_numpy)")

@@ -48,3 +48,35 @@ def fma(a, b, c) -> torch.Tensor:
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root."""
     return torch.sqrt(x.double()).float()
+
+
+# The partial width of XLA's CPU tree reduction.
+_XLA_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over axis 0, added in the order the reference's
+    compiled ``jnp.sum`` adds (XLA's CPU tree-reduction rewrite).
+
+    While the axis is longer than 32, XLA pads it with zeros (half the
+    padding in front, the odd one behind) to a multiple of 32 and sums
+    each run of 32 in order; the last at most 32 partials are summed in
+    order.  Each addition here is one float32 add, so the result is the
+    same bits on every device.
+    """
+    w = _XLA_WINDOW
+    while x.shape[0] > w:
+        n = x.shape[0]
+        pad = (w - n % w) % w
+        rest = x.shape[1:]
+        x = torch.cat([x.new_zeros((pad // 2,) + rest), x,
+                       x.new_zeros((pad - pad // 2,) + rest)])
+        x = x.reshape((-1, w) + rest)
+        acc = x[:, 0]
+        for k in range(1, w):
+            acc = acc + x[:, k]
+        x = acc
+    acc = x[0]
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k]
+    return acc

@@ -3,22 +3,48 @@
 Port of ``repro.core.simulator``: a Python loop over 5-minute slots, each
 running
 
+  0. with faults (``SimConfig(faults=...)`` or a ``fault_schedule``):
+     tasks resident on crashed nodes are evicted into the retry queue with
+     exponential backoff; under the degradation controller's windowed QoS
+     pressure up to ``degrade_evict`` residents are shed (into the reclaim
+     pool when reclamation is on, else the retry queue); with migration,
+     residents of draining nodes join a bounded migration pool whose
+     overflow is evicted into the retry queue
   1. node aggregates of the active set (task finishes)
-  2. each task's demand process, AR(1) around its mean, clipped at peak
-  3. the WFS allocator -> realized usage per node, task and cluster QoS
+  2. each task's demand process, AR(1) around its mean, clipped at peak;
+     fault surges multiply resident tasks' demand
+  3. the WFS allocator (per-node capacity honours flaps) -> realized usage
+     per node, task and cluster QoS; an evicted task counts as a violator
+     in its eviction slot
   4. the penalty controller
-  5. the estimator refresh; reservations cleared
+  4.5 with ``SimConfig(guard=...)``: the estimator-drift watchdog and its
+     breaker, which scale the reclaim and migrate passes' penalty
+  5. the estimator refresh; reservations cleared; crashed, flapped and
+     draining nodes fold their lost capacity into ``reserved``
+     (``admission.mask_unavailable``); an open breaker blends admission's
+     estimate toward the residents' requests
+  5.5 with ``SimConfig(migration=...)``: the migration pass re-places the
+     head of the migration pool (``bandwidth`` tasks) through
+     ``admission.admit_queue`` with the ``migrate`` policy, in wavefront
+     rounds; a moved task keeps its progress and runs ``migrate_cost``
+     slots longer
   6. the policy's queue order (FIFO when absent), then retries and this
      slot's arrivals admitted in order: one decision at a time
      (``admission_mode="sequential"``) or in wavefront rounds over the
-     batched kernels (``"wavefront"``)
+     batched kernels (``"wavefront"``); a task inside its backoff window
+     (``retry_backoff``, ``retry_jitter``), or any retry while no node
+     admits, stays queued without using an attempt
   7. with ``SimConfig(reclamation=True)``: tasks dropped for good (out of
-     retries, or past the retry queue) join a bounded pool, which the
-     ``reclaim`` policy re-admits against predicted headroom through the
-     same ``admission.admit_queue`` front end, in wavefront rounds
+     retries, or past the retry queue; with faults also evictions that
+     found no room, and degrade-shed victims) join a bounded pool, which
+     the ``reclaim`` policy re-admits against predicted headroom through
+     the same ``admission.admit_queue`` front end, in wavefront rounds; the
+     guard's breaker suspends or trickles it
 
-and the per-slot metrics.  Faults, migration, the guard and retry
-backoff/jitter come with later slices (``NotImplementedError``).
+and the per-slot metrics.  Each feature is gated in Python, as in the
+reference: ``faults=None``, ``migration=None``, ``guard=None`` and
+``retry_backoff = retry_jitter = 0`` run the fault-free loop, launch for
+launch and host sync for host sync.
 
 The queue of a slot is compacted to its ready entries before admission:
 the one host sync per slot of the sequential mode.  It leaves every
@@ -26,11 +52,20 @@ decision unchanged, because an invalid entry commits nothing and is never
 pending in a wavefront.  It does change the wavefront's queue width Q,
 where the reference pads the queue, and with it whether the score-bucket
 dedup applies (``0 < dedup_buckets < Q``) and how many distinct rows it
-finds; those choose how a sweep is computed, not what it returns.
+finds; those choose how a sweep is computed, not what it returns.  The
+migration and reclaim pools are compacted the same way (one host sync
+each per slot).
 
-Randomness comes from a noise source (:mod:`repro_torch.core.noise`);
-decisions equal the reference's under ``ReplayNoise``.  Rounding follows
+Randomness comes from a noise source (:mod:`repro_torch.core.noise`):
+the demand noise, the retry-jitter table and a sampled fault schedule.
+Decisions equal the reference's under ``ReplayNoise`` with the
+reference's jitter table and an explicit ``fault_schedule`` (its sampled
+one, through ``convert.fault_schedule_from_numpy``).  Rounding follows
 the reference as XLA compiles it (:mod:`repro_torch.core.numerics`).
+The ``requested`` metric is the one place where the port does not: under
+a crash the reference adds ``DRAIN_LOAD`` into its float32 sum and takes
+it out after, which cancels catastrophically; the port takes each node's
+offset off before the sum.
 """
 from __future__ import annotations
 
@@ -75,10 +110,13 @@ def build_arrival_table(arrival: np.ndarray, n_slots: int,
     return table
 
 
-def _node_aggregates(ts: TaskSet, placement, admit_slot, slot, n_nodes):
-    """Per-node request/count/source aggregates of the active set."""
+def _node_aggregates(ts: TaskSet, placement, admit_slot, slot, n_nodes,
+                     duration=None):
+    """Per-node request/count/source aggregates of the active set;
+    ``duration`` overrides ``ts.duration`` (migrated tasks run longer)."""
     placed = placement >= 0
-    active = placed & (admit_slot < slot) & (slot <= admit_slot + ts.duration)
+    dur = ts.duration if duration is None else duration
+    active = placed & (admit_slot < slot) & (slot <= admit_slot + dur)
     seg = torch.clamp(torch.where(active, placement, 0), 0, n_nodes - 1)
     maskf = active.to(torch.float32)
     act_i = active.to(I32)
@@ -93,25 +131,6 @@ def _node_aggregates(ts: TaskSet, placement, admit_slot, slot, n_nodes):
     return active, seg, requested, n_tasks, src_count
 
 
-def _check_supported(cfg: SimConfig) -> None:
-    later = [
-        (cfg.faults is not None, "SimConfig.faults", "faults"),
-        (cfg.migration is not None, "SimConfig.migration", "migration"),
-        (cfg.guard is not None, "SimConfig.guard", "guard"),
-        (cfg.retry_backoff > 0, "SimConfig.retry_backoff", "faults"),
-        (cfg.retry_jitter > 0, "SimConfig.retry_jitter", "faults"),
-    ]
-    for on, what, slice_name in later:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet: it comes with the "
-                f"{slice_name} slice of the port")
-    if cfg.admission_mode not in ("sequential", "wavefront"):
-        raise ValueError(
-            f"unknown SimConfig.admission_mode {cfg.admission_mode!r}; "
-            f"expected 'sequential' or 'wavefront'")
-
-
 def _stack(items):
     """Stack a list of (nested) NamedTuples of tensors leaf by leaf."""
     first = items[0]
@@ -120,26 +139,107 @@ def _stack(items):
     return torch.stack(items)
 
 
+def _valid_first(ids: torch.Tensor) -> torch.Tensor:
+    """``ids`` with its valid (>= 0) entries first, each part in order."""
+    return ids[torch.argsort((ids < 0).to(I32), stable=True)]
+
+
+def _compact_ids(mask: torch.Tensor, width: int) -> torch.Tensor:
+    """Ids of the set tasks, lowest first, (width,) padded with -1."""
+    k = min(width, mask.shape[0])
+    order = torch.argsort((~mask).to(I32), stable=True)[:k]
+    ids = torch.where(mask[order], order.to(I32), -1)
+    if k < width:
+        ids = torch.cat([ids, ids.new_full((width - k,), -1)])
+    return ids
+
+
+def _flags(ids: torch.Tensor, on: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) bool: True at the ids whose ``on`` is set (a scatter-max, so
+    padding entries, clamped to 0, write nothing)."""
+    return torch.zeros(n, dtype=I32, device=ids.device).scatter_reduce(
+        0, torch.clamp(ids, min=0).long(), on.to(I32), "amax").to(torch.bool)
+
+
+def _requested_total(node: NodeState, f_off=None) -> torch.Tensor:
+    """(R,) requests of running tasks plus this slot's reservations, over
+    all nodes.  A fault offset ``f_off`` (N,) comes off each node before
+    the sum: a down node's reserved row is ``DRAIN_LOAD`` exactly and
+    leaves exactly its requests.  (The reference takes ``sum(f_off)`` off
+    the float32 total instead, which cancels catastrophically.)"""
+    if f_off is None:
+        return (node.requested + node.reserved).sum(dim=0)
+    return (node.requested + (node.reserved - f_off[:, None])).sum(dim=0)
+
+
 def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
                   policy, params: FlexParams, noise, est,
-                  ctrl_impl) -> SimResult:
+                  ctrl_impl, fault_schedule=None) -> SimResult:
     """Run ``cfg.n_slots`` slots on the device of ``ts``.
 
     arrival_table (S, A) i32 from :func:`build_arrival_table`; ``noise``
     a noise source; ``est`` a stateful estimator; ``ctrl_impl`` a penalty
-    controller.
+    controller; ``fault_schedule`` an explicit
+    :class:`repro_torch.faults.FaultSchedule` (else ``cfg.faults`` has the
+    noise source sample one).
     """
     from repro_torch.api import admission
     from repro_torch.api.policies import ReclaimPolicy
     from repro_torch.api.protocols import policy_queue_order
+    from repro_torch.faults import degrade as _degrade
+    from repro_torch.faults import injection as _inject
 
-    _check_supported(cfg)
+    if cfg.admission_mode not in ("sequential", "wavefront"):
+        raise ValueError(
+            f"unknown SimConfig.admission_mode {cfg.admission_mode!r}; "
+            f"expected 'sequential' or 'wavefront'")
     dev = ts.arrival.device
     n_nodes, n_slots = cfg.n_nodes, cfg.n_slots
     T = ts.num_tasks
     Qr = cfg.retry_capacity
     queue_order = policy_queue_order(policy)
     record = cfg.record_node_usage
+    batch_mode = cfg.admission_mode == "wavefront"
+    knobs = dict(use_kernel=cfg.use_kernel, topk=cfg.wavefront_topk,
+                 dedup_buckets=cfg.dedup_buckets,
+                 tie_margin=cfg.wavefront_tie_margin)
+
+    # Each feature is gated in Python, as in the reference.
+    fcfg = cfg.faults
+    faults_on = fcfg is not None or fault_schedule is not None
+    jitter_on = cfg.retry_jitter > 0
+    backoff_on = faults_on or cfg.retry_backoff > 0 or jitter_on
+    degrade_on = bool(faults_on and fcfg is not None and fcfg.degrade)
+    shed_to_pool = degrade_on and cfg.reclamation
+    mcfg = cfg.migration
+    migration_on = mcfg is not None
+    gcfg = cfg.guard
+    guard_on = gcfg is not None
+    if migration_on and not faults_on:
+        raise ValueError(
+            "SimConfig.migration requires fault injection (SimConfig.faults "
+            "or an explicit fault_schedule): the migration pass is driven by "
+            "the schedule's drain/crash tables")
+    if jitter_on:
+        jit_tab = noise.jitter(T, cfg.retry_jitter).to(dev)
+    if faults_on:
+        if fault_schedule is None:
+            fault_schedule = noise.faults(fcfg, n_slots, n_nodes)
+        fault_schedule = fault_schedule.to(dev)
+        if migration_on and fault_schedule.draining is None:
+            fault_schedule = fault_schedule._replace(
+                draining=torch.zeros((n_slots, n_nodes), dtype=torch.bool,
+                                     device=dev))
+    if degrade_on:
+        thr = (float(np.float32(fcfg.degrade_threshold))
+               if fcfg.degrade_threshold > 0 else params.qos_target)
+    if migration_on:
+        from repro_torch.api.policies import MigratePolicy
+
+        migrate_policy = MigratePolicy(margin_scale=mcfg.margin_scale)
+        mig_B = max(min(int(mcfg.bandwidth), int(mcfg.pool_size)), 0)
+    if guard_on:
+        from repro_torch.guard import watchdog as _wd
 
     ctrl = ctrl_impl.init(params)
     est_state = est.init_state(n_nodes, device=dev)
@@ -161,13 +261,100 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
     if cfg.reclamation:
         reclaim_policy = ReclaimPolicy(margin_scale=cfg.reclaim_margin)
         pool = torch.full((cfg.reclaim_pool,), -1, dtype=I32, device=dev)
+    if backoff_on:
+        next_try = torch.zeros(T, dtype=I32, device=dev)
+    if faults_on:
+        n_fault_ev = zero_i
+    if degrade_on:
+        qos_win = torch.ones(fcfg.qos_window, dtype=torch.float32,
+                             device=dev)
+        n_degrade_ev = zero_i
+        reclaimed = torch.zeros(T, dtype=torch.bool, device=dev)
+    if migration_on:
+        mig_pool = torch.full((mcfg.pool_size,), -1, dtype=I32, device=dev)
+        extra_slots = torch.zeros(T, dtype=I32, device=dev)
+        n_migrated = n_mig_failed = zero_i
+    if guard_on:
+        g_win = _wd.init_window(gcfg.window, NUM_RESOURCES, device=dev)
+        g_state = g_timer = n_guard_def = zero_i
     innov = sqrt(torch.clamp(fma(-ts.ar_rho, ts.ar_rho, 1.0), min=0.0))
 
     metrics = []
     for slot in range(n_slots):
+        if faults_on:
+            slot_up = fault_schedule.node_up[slot]
+            slot_cap = fault_schedule.capacity[slot]
+            slot_mult = fault_schedule.demand_mult[slot]
+        # migrated tasks run migrate_cost extra slots
+        dur = ts.duration + extra_slots if migration_on else ts.duration
+        placement_in, admit_in = placement, admit_slot
+
+        # --- 0. fault, degradation and migration-overflow evictions -------
+        # Before the aggregates, so freed capacity is admissible this slot.
+        if faults_on:
+            resident = (placement_in >= 0) & (slot <= admit_in + dur)
+            host = torch.clamp(placement_in, 0, n_nodes - 1).long()
+            on_down = resident & ~slot_up[host]
+            n_fault_ev = n_fault_ev + on_down.sum(dtype=I32)
+            evict_mask = on_down
+            degrade_mask = torch.zeros(T, dtype=torch.bool, device=dev)
+            if degrade_on:
+                pressure = _degrade.under_pressure(qos_win, thr)
+                rank = _degrade.victim_rank(
+                    ts.priority, reclaimed if cfg.reclamation
+                    else torch.zeros_like(reclaimed),
+                    fcfg.degrade_spare_production)
+                degrade_mask = _degrade.select_victims(
+                    resident & ~on_down & pressure, rank, admit_in, n_slots,
+                    fcfg.degrade_evict)
+                evict_mask = on_down | degrade_mask
+                n_degrade_ev = n_degrade_ev + degrade_mask.sum(dtype=I32)
+            forced_retry = on_down
+            if migration_on:
+                # Drain sources: announced warning windows and, with an
+                # overload threshold, nodes whose last estimate is hot;
+                # never a down node (its residents were just evicted).
+                drain_src = fault_schedule.draining[slot]
+                if mcfg.overload_threshold > 0:
+                    drain_src = drain_src | (
+                        est_state.est.max(dim=-1).values
+                        > float(np.float32(mcfg.overload_threshold)))
+                drain_src = drain_src & slot_up
+                want = resident & ~evict_mask & drain_src[host]
+                # Carried entries leave silently when their node recovered
+                # or they finished or were evicted; new ones merge in,
+                # valid-first; the overflow is evicted into the retry queue.
+                pool_keep = (mig_pool >= 0) & want[
+                    torch.clamp(mig_pool, min=0).long()]
+                in_pool = _flags(mig_pool, pool_keep, T)
+                merged_m = _valid_first(torch.cat([
+                    torch.where(pool_keep, mig_pool, -1),
+                    _compact_ids(want & ~in_pool, mcfg.pool_size)]))
+                mig_pool = merged_m[:mcfg.pool_size]
+                mig_over = merged_m[mcfg.pool_size:]
+                over_mask = _flags(mig_over, mig_over >= 0, T)
+                n_mig_failed = n_mig_failed + (mig_over >= 0).sum(dtype=I32)
+                evict_mask = evict_mask | over_mask
+                forced_retry = forced_retry | over_mask
+            placement_in = torch.where(evict_mask, -1, placement_in)
+            admit_in = torch.where(evict_mask, -1, admit_in)
+            # Evictions through the retry queue use an attempt and arm the
+            # backoff; pool-shed victims wait on the reclaim pass instead.
+            retry_evict = forced_retry if shed_to_pool else evict_mask
+            attempts = attempts + retry_evict.to(I32)
+            ev_delay = _inject.backoff_delay(attempts, cfg.retry_backoff,
+                                             cfg.retry_backoff_cap)
+            if jitter_on:
+                ev_delay = ev_delay + jit_tab
+            next_try = torch.where(retry_evict, slot + 1 + ev_delay,
+                                   next_try)
+            evict_requeue = retry_evict & (attempts <= cfg.max_retries)
+            evict_exhausted = retry_evict & (attempts > cfg.max_retries)
+
         # --- 1. node aggregates for the active set ------------------------
         active, seg, requested, n_tasks, src_count = _node_aggregates(
-            ts, placement, admit_slot, slot, n_nodes)
+            ts, placement_in, admit_in, slot, n_nodes,
+            dur if migration_on else None)
 
         # --- 2. demand process: AR(1) around the task mean -----------------
         white = noise.demand(slot, T)
@@ -175,28 +362,85 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
         demand = torch.minimum(
             torch.clamp(fma(ts.std_usage, ar_noise[:, None], ts.mean_usage),
                         min=0.0), ts.peak_usage) * cfg.demand_scale
+        if faults_on:
+            # a surge multiplies the demand of the tasks resident there
+            demand = demand * torch.where(active, slot_mult[seg],
+                                          1.0)[:, None]
         demand = torch.clamp(demand, max=1.0)
 
         # --- 3. allocation + QoS --------------------------------------------
+        wfs_cap = torch.where(slot_up, slot_cap, 0.0) if faults_on else 1.0
         alloc, node_usage = allocation.wfs_allocate(
-            demand, ts.request, placement, active, n_nodes,
-            iters=cfg.wfs_iters)
+            demand, ts.request, placement_in, active, n_nodes,
+            capacity=wfs_cap, iters=cfg.wfs_iters)
         q_task = qos.task_qos(alloc, demand, ts.request)
-        q_cluster = qos.cluster_qos(q_task, active)
+        if faults_on:
+            # an eviction is a broken SLO: victims count as violators
+            q_cluster = qos.cluster_qos(q_task & ~evict_mask,
+                                        active | evict_mask)
+        else:
+            q_cluster = qos.cluster_qos(q_task, active)
         qos_ok = qos_ok + (q_task & active).to(I32)
         active_cnt = active_cnt + active.to(I32)
 
         # --- 4. penalty controller ------------------------------------------
         ctrl = ctrl_impl.update(ctrl, q_cluster, params)
 
+        # --- 4.5 estimator-drift watchdog + breaker -------------------------
+        # Last slot's estimate judged this slot's admissions: its error
+        # against this slot's usage is the drift; the state it gives
+        # governs this slot's passes.
+        pass_penalty = ctrl.penalty
+        if guard_on:
+            g_win = _wd.push_errors(g_win, _wd.drift_sample(est_state.est,
+                                                            node_usage))
+            g_err_q = _wd.trip_statistic(g_win, gcfg.err_quantile)
+            g_state, g_timer, _ = _wd.breaker_step(g_state, g_timer,
+                                                   g_err_q, gcfg)
+            pass_penalty = ctrl.penalty * _wd.penalty_scale(g_err_q, gcfg)
+
         # --- 5. estimator refresh -------------------------------------------
         est_state = est.refresh(
             est_state, node_usage,
             lambda shape, slot=slot: noise.estimate(slot, shape))
-        node = NodeState(est_usage=est_state.est,
+        est_adm = est_state.est
+        if guard_on:
+            # while OPEN, admission judges nodes by the estimate blended
+            # toward the residents' requests (the metrics keep the raw one)
+            est_adm = _wd.blend_estimate(est_state.est, requested,
+                                         g_state == _wd.OPEN, gcfg)
+        node = NodeState(est_usage=est_adm,
                          reserved=torch.zeros_like(node_usage),
                          requested=requested, n_tasks=n_tasks,
                          src_count=src_count)
+        if faults_on:
+            # Down, flapped and (with migration) draining nodes: the
+            # offset excludes the sources as migration targets too.
+            avail = slot_up & ~drain_src if migration_on else slot_up
+            f_off = admission.fault_load_offset(avail, slot_cap)
+            node = admission.mask_unavailable(node, f_off)
+
+        # --- 5.5 live migration off draining nodes --------------------------
+        # Before primary admission; a moved task re-places next slot (it
+        # still runs on its source this slot) with its admit slot kept.
+        if migration_on and mig_B > 0:
+            n_mig = int((mig_pool[:mig_B] >= 0).sum())   # the pass's sync
+            aqi = mig_pool[:n_mig]
+            node, m_idx = admission.admit_queue(
+                migrate_policy, node, ts.request[aqi], ts.src[aqi],
+                ts.priority[aqi], torch.ones_like(aqi, dtype=torch.bool),
+                pass_penalty, params, **dict(knobs, batch_mode=True))
+            m_ok = m_idx >= 0
+            moved = _flags(aqi, m_ok, T)
+            target = torch.zeros(T, dtype=I32, device=dev).scatter_reduce(
+                0, aqi.long(), torch.where(m_ok, m_idx, 0), "amax")
+            placement_in = torch.where(moved, target, placement_in)
+            extra_slots = extra_slots + torch.where(
+                moved, int(mcfg.migrate_cost), 0).to(I32)
+            n_migrated = n_migrated + m_ok.sum(dtype=I32)
+            # successes leave the pool; failures try again next slot
+            mig_pool = _valid_first(torch.cat([
+                torch.where(m_ok, -1, aqi), mig_pool[n_mig:]]))
 
         # --- 6. scheduling: retries first, then new arrivals ----------------
         queue_ids = torch.cat([retry, arrival_table[slot]])
@@ -208,29 +452,45 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
             queue_ids = queue_ids[order]
         valid = queue_ids >= 0
         qi = torch.clamp(queue_ids, min=0)
-        ready = valid
+        if backoff_on:
+            # inside the backoff window a task stays queued, no attempt
+            ready = valid & (slot >= next_try[qi])
+            if faults_on:
+                # while no node admits, a retry is deferred the same way
+                ready = ready & avail.any()
+        else:
+            ready = valid
         pos = torch.nonzero(ready).squeeze(1)     # the slot's host sync
         ci = qi[pos]
         node, placed_c = admission.admit_queue(
             policy, node, ts.request[ci], ts.src[ci], ts.priority[ci],
             torch.ones_like(ci, dtype=torch.bool), ctrl.penalty, params,
-            use_kernel=cfg.use_kernel,
-            batch_mode=cfg.admission_mode == "wavefront",
-            topk=cfg.wavefront_topk, dedup_buckets=cfg.dedup_buckets,
-            tie_margin=cfg.wavefront_tie_margin)
+            **dict(knobs, batch_mode=batch_mode))
         placed_idx = torch.full_like(queue_ids, -1).index_copy_(
             0, pos, placed_c)
 
         ok = ready & (placed_idx >= 0)
-        placement = placement.scatter_reduce(
+        placement = placement_in.scatter_reduce(
             0, qi.long(), torch.where(ok, placed_idx, -1), "amax")
-        admit_slot = admit_slot.scatter_reduce(
+        admit_slot = admit_in.scatter_reduce(
             0, qi.long(), torch.where(ok, slot, -1).to(I32), "amax")
 
         # retry bookkeeping
         failed = ready & (placed_idx < 0)
         attempts = attempts.index_add(0, qi, failed.to(I32))
+        if backoff_on:
+            delay = _inject.backoff_delay(attempts[qi], cfg.retry_backoff,
+                                          cfg.retry_backoff_cap)
+            if jitter_on:
+                delay = delay + jit_tab[qi]
+            # a scatter-max: padding entries (task 0) write a no-op 0, and
+            # a task's next_try only grows
+            next_try = next_try.scatter_reduce(
+                0, qi.long(), torch.where(failed, slot + 1 + delay, 0),
+                "amax")
         eligible = failed & (attempts[qi] <= cfg.max_retries)
+        if backoff_on:
+            eligible = eligible | (valid & ~ready)   # deferred stay queued
         retry_order = torch.argsort((~eligible).to(I32), stable=True)
         sorted_ids = queue_ids[retry_order]
         n_eligible = eligible.sum(dtype=I32)
@@ -239,45 +499,76 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
         n_dropped = (exhausted.sum(dtype=I32)
                      + torch.clamp(n_eligible - Qr, min=0))
 
+        if faults_on:
+            # Evicted tasks were resident, so not in this queue: they join
+            # the rebuilt retry queue behind it; the overflow drops (or
+            # pools).
+            ev_ids = _compact_ids(evict_requeue, Qr)
+            ev_lost = (evict_requeue.sum(dtype=I32)
+                       - (ev_ids >= 0).sum(dtype=I32))
+            merged_r = _valid_first(torch.cat([retry, ev_ids]))
+            merge_over = merged_r[Qr:]
+            retry = merged_r[:Qr]
+            n_dropped = (n_dropped + ev_lost
+                         + evict_exhausted.sum(dtype=I32)
+                         + (merge_over >= 0).sum(dtype=I32))
+
         # --- 7. headroom reclamation ------------------------------------------
         if cfg.reclamation:
             # Tasks dropped for good join the pool, valid-first in queue
             # order; only the pool's overflow counts as rejected.
             rank = torch.argsort(retry_order)   # queue pos -> sorted pos
             pooled = exhausted | (eligible & (rank >= Qr))
-            merged = torch.cat([pool, torch.where(pooled, queue_ids, -1)])
-            merged = merged[torch.argsort((merged < 0).to(I32), stable=True)]
+            parts = [pool, torch.where(pooled, queue_ids, -1)]
+            if faults_on:
+                # fault evictions feed the pool too: the retry queue's
+                # overflow, exhausted evictions and degrade-shed victims
+                pool_evict = evict_exhausted
+                if shed_to_pool:
+                    pool_evict = pool_evict | degrade_mask
+                parts += [merge_over, _compact_ids(pool_evict, Qr)]
+            merged = _valid_first(torch.cat(parts))
             pool = merged[:cfg.reclaim_pool]
             n_rejected = n_rejected + ((merged >= 0).sum(dtype=I32)
                                        - (pool >= 0).sum(dtype=I32))
-            # The pool is valid-first: admit its valid prefix (the pass's
-            # host sync), judged by P * L-hat + reserved against the
-            # penalty-derived cap, in wavefront rounds.
-            n_pool = int((pool >= 0).sum())
-            pi = pool[:n_pool]
+            if faults_on:
+                n_rejected = n_rejected + ev_lost
+            # Admit the pool's valid prefix (the pass's host sync), judged
+            # by P * L-hat + reserved against the penalty-derived cap, in
+            # wavefront rounds; the breaker suspends it while OPEN and
+            # trickles its head while HALF_OPEN.
+            if guard_on:
+                n_pool, state = torch.stack(
+                    [(pool >= 0).sum(dtype=I32), g_state]).tolist()
+                n_admit = min(n_pool, _wd.reclaim_width(
+                    state, cfg.reclaim_pool, gcfg))
+                n_guard_def = n_guard_def + (n_pool - n_admit)
+            else:
+                n_admit = int((pool >= 0).sum())
+            pi = pool[:n_admit]
             node, r_idx = admission.admit_queue(
                 reclaim_policy, node, ts.request[pi], ts.src[pi],
                 ts.priority[pi], torch.ones_like(pi, dtype=torch.bool),
-                ctrl.penalty, params, use_kernel=cfg.use_kernel,
-                batch_mode=True, topk=cfg.wavefront_topk,
-                dedup_buckets=cfg.dedup_buckets,
-                tie_margin=cfg.wavefront_tie_margin)
+                pass_penalty, params, **dict(knobs, batch_mode=True))
             r_ok = r_idx >= 0
             placement = placement.scatter_reduce(
                 0, pi.long(), torch.where(r_ok, r_idx, -1), "amax")
             admit_slot = admit_slot.scatter_reduce(
                 0, pi.long(), torch.where(r_ok, slot, -1).to(I32), "amax")
             n_reclaimed = n_reclaimed + r_ok.sum(dtype=I32)
-            pool = torch.cat([torch.where(r_ok, -1, pi), pool[n_pool:]])
-            pool = pool[torch.argsort((pool < 0).to(I32), stable=True)]
+            pool = _valid_first(torch.cat([torch.where(r_ok, -1, pi),
+                                           pool[n_admit:]]))
+            if degrade_on:
+                # reclaimed tasks are the degradation's first victims
+                reclaimed = reclaimed | _flags(pi, r_ok, T)
         else:
             n_rejected = n_rejected + n_dropped
 
         # --- metrics ----------------------------------------------------------
-        req_total = (node.requested + node.reserved).sum(dim=0)
         metrics.append(SlotMetrics(
             usage=node_usage.sum(dim=0) / n_nodes,
-            requested=req_total / n_nodes,
+            requested=_requested_total(node, f_off if faults_on else None)
+            / n_nodes,
             qos=q_cluster,
             penalty=ctrl.penalty,
             usage_std=torch.std(node_usage, dim=0, correction=0),
@@ -289,15 +580,17 @@ def simulate_core(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
             node_est=est_state.est if record else empty_nr,
             node_requested=requested if record else empty_nr,
             n_reclaimed=n_reclaimed,
-            n_fault_evicted=zero_i,
-            n_degrade_evicted=zero_i,
-            degraded=zero_i,
-            n_migrated=zero_i,
-            n_migration_failed=zero_i,
-            guard_tripped=empty_i,
-            n_guard_deferred=empty_i,
-            guard_err_q=empty_f,
+            n_fault_evicted=n_fault_ev if faults_on else zero_i,
+            n_degrade_evicted=n_degrade_ev if degrade_on else zero_i,
+            degraded=pressure.to(I32) if degrade_on else zero_i,
+            n_migrated=n_migrated if migration_on else zero_i,
+            n_migration_failed=n_mig_failed if migration_on else zero_i,
+            guard_tripped=g_state if guard_on else empty_i,
+            n_guard_deferred=n_guard_def if guard_on else empty_i,
+            guard_err_q=g_err_q if guard_on else empty_f,
         ))
+        if degrade_on:
+            qos_win = _degrade.push_window(qos_win, q_cluster)
 
     return SimResult(metrics=_stack(metrics), placement=placement,
                      admit_slot=admit_slot, qos_ok_slots=qos_ok,
@@ -334,17 +627,21 @@ def _resolve(policy, params, estimator, estimator_kind, est_noise_std,
 def simulate(ts: TaskSet, arrival_table: torch.Tensor, cfg: SimConfig,
              policy, params: FlexParams | None, noise,
              estimator_kind: str = "current", est_noise_std: float = 0.0,
-             estimator=None, controller=None, *, device="cuda") -> SimResult:
+             estimator=None, controller=None, fault_schedule=None, *,
+             device="cuda") -> SimResult:
     """Simulation with policy/estimator/controller normalization.
 
     ``policy`` is a registry name, a ``SchedulerKind`` or a policy object;
-    ``noise`` a noise source.  Runs on ``device``.
+    ``noise`` a noise source; ``fault_schedule`` an explicit
+    :class:`repro_torch.faults.FaultSchedule`, which overrides the one
+    ``SimConfig(faults=...)`` would sample.  Runs on ``device``.
     """
     policy, params, est, ctrl_impl = _resolve(
         policy, params, estimator, estimator_kind, est_noise_std, controller,
         cfg, device=device)
     return simulate_core(ts.to(device), arrival_table.to(device), cfg,
-                         policy, params, noise, est, ctrl_impl)
+                         policy, params, noise, est, ctrl_impl,
+                         fault_schedule)
 
 
 def run(ts: TaskSet, cfg: SimConfig, policy,

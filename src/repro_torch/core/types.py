@@ -126,13 +126,13 @@ class TaskSet(NamedTuple):
 class SimConfig(NamedTuple):
     """Static simulation configuration (§5.1).
 
-    Field names and defaults are those of ``repro.core.types.SimConfig``.
-    This port runs the sequential and wavefront admission paths; the
-    simulator raises ``NotImplementedError`` for the features later slices
-    bring (faults, migration, guard, reclamation, retry backoff and
-    jitter).  ``kernel_interpret`` has no counterpart: the port has no
-    kernel interpreter, and a run on CPU tensors takes each kernel's plain
-    PyTorch version.
+    Field names and defaults are those of ``repro.core.types.SimConfig``,
+    and the simulator runs every one of them: ``faults`` takes a
+    ``repro_torch.faults.FaultConfig``, ``migration`` a
+    ``repro_torch.migration.MigrationConfig`` and ``guard`` a
+    ``repro_torch.guard.GuardConfig``.  ``kernel_interpret`` has no
+    counterpart: the port has no kernel interpreter, and a run on CPU
+    tensors takes each kernel's plain PyTorch version.
     """
 
     n_nodes: int = 4000

@@ -66,9 +66,8 @@ _DRAIN_LOAD = admission.DRAIN_LOAD
 
 ADMISSION_MODES = ("eager", "sequential", "wavefront")
 
-_LATER = {"faults": "ROADMAP queue 1 item 4 (faults and degradation)",
-          "migration": "ROADMAP queue 1 item 5 (migration)",
-          "guard": "ROADMAP queue 1 item 6 (guard)"}
+_LATER = {name: "ROADMAP queue 1 item 6 (the engine's faults, migration "
+                "and guard)" for name in ("faults", "migration", "guard")}
 
 
 class AdmissionPolicy(enum.Enum):

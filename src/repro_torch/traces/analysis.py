@@ -2,8 +2,10 @@
 
 Each function returns plain Python numbers.  ``summarize`` returns the
 reference's keys and values and warns where the reference warns: when
-the per-node series were not recorded, and on every unguarded run (the
-port has no guard yet).
+the per-node series were not recorded, and when the run was unguarded.
+Under a crash the ``requested`` series, and with it ``avg_request_cpu``
+and ``avg_request_mem``, is the port's repaired sum, not the reference's
+(``core.simulator._requested_total``).
 """
 from __future__ import annotations
 
@@ -148,6 +150,31 @@ def fault_recovery(result: SimResult, qos_target: float,
     }
 
 
+def guard_report(result: SimResult) -> Dict[str, float]:
+    """Drift-watchdog summary of a guarded run: breaker trips (transitions
+    into OPEN), the share of slots OPEN and HALF_OPEN, the reclaim
+    candidates held back, and the trip statistic's maximum and mean.
+    Raises ValueError on an unguarded run (its guard series are empty)."""
+    m = result.metrics
+    if m.guard_tripped.numel() == 0:
+        raise ValueError(
+            "guard_report needs the drift-watchdog series "
+            "(SlotMetrics.guard_tripped is empty); run the simulation "
+            "with SimConfig(guard=GuardConfig(...))")
+    state = m.guard_tripped
+    opened = state == 1
+    prev = torch.cat([torch.zeros_like(opened[..., :1]), opened[..., :-1]],
+                     dim=-1)
+    return {
+        "guard_trips": int((opened & ~prev).sum()),
+        "open_frac": _mean(opened),
+        "half_open_frac": _mean(state == 2),
+        "n_guard_deferred": int(m.n_guard_deferred[..., -1].max()),
+        "err_q_max": float(m.guard_err_q.max()),
+        "err_q_mean": _mean(m.guard_err_q),
+    }
+
+
 def summarize(ts: TaskSet, result: SimResult,
               qos_target: float) -> Dict[str, float]:
     """Utilization, QoS and admission summary of one run."""
@@ -177,9 +204,12 @@ def summarize(ts: TaskSet, result: SimResult,
             "series were not recorded; pass "
             "SimConfig(record_node_usage=True) to include them",
             stacklevel=2)
-    warnings.warn(
-        "summarize: skipping guard keys (guard_report) — the run was "
-        "unguarded; pass SimConfig(guard=GuardConfig(...)) to include "
-        "them",
-        stacklevel=2)
+    if m.guard_tripped.numel():
+        out.update(guard_report(result))
+    else:
+        warnings.warn(
+            "summarize: skipping guard keys (guard_report) — the run was "
+            "unguarded; pass SimConfig(guard=GuardConfig(...)) to include "
+            "them",
+            stacklevel=2)
     return out

@@ -21,7 +21,8 @@ from repro_torch.api import (admission, get_policy, list_policies,
 from repro_torch.convert import node_state_from_numpy
 from repro_torch.core.types import FlexParams, SchedulerKind
 
-HOOKED = ["flex-f", "flex-l", "best-fit-usage", "flex-priority", "reclaim"]
+HOOKED = ["flex-f", "flex-l", "best-fit-usage", "flex-priority", "reclaim",
+          "migrate", "flex-brownout"]
 PLAIN = ["least-fit", "oversub"]
 
 # The tensors here are tiny: one intra-op thread is fastest, and keeps
@@ -137,7 +138,7 @@ def test_registry_and_capabilities():
     pol = get_policy("flex-f")
     assert resolve_policy(pol) is pol
     with pytest.raises(KeyError, match="registered"):
-        get_policy("migrate")
+        get_policy("no-such-policy")
     assert admission.DRAIN_LOAD == j_adm.DRAIN_LOAD
 
 

@@ -49,7 +49,7 @@ from repro_torch.kernels.flex_score.ref import (NEG_INF, pick_node_batch_ref,
 
 SIZES = [1, 5, 100, 512, 513, 1000]
 CASES = ["random", "ties", "infeasible", "cap_below_one", "best_fit",
-         "weights"]
+         "weights", "fault_offset"]
 INTERPRET_Q = 33
 
 _jax_batch = jax.jit(jax_batch_ref)
@@ -91,6 +91,14 @@ def _inputs(n, q, case, seed):
     elif case == "weights":
         w_load = f32(0.5 + rng.random(q))
         w_src = f32(rng.random(q))
+    elif case == "fault_offset":
+        # the simulator's fault offsets on the reserved rows (about 30%
+        # down or draining at DRAIN_LOAD, 20% flapped to half capacity)
+        # and flex-brownout's per-task caps (production 1, batch below)
+        kind = rng.random(n)
+        res = f32(res + np.where(kind < 0.3, 1e6,
+                                 np.where(kind < 0.5, 1 - 0.5, 0))[:, None])
+        cap = f32(np.where(rng.random(q) < 0.5, 1.0, 0.7))
     return est, res, src, r, penalty, cap, w_load, w_src
 
 
@@ -143,6 +151,11 @@ def test_batch_pick_bit_equal_to_jax(n, case):
         if case == "infeasible":
             assert (got_ref[0] == -1).all() and not got_ref[2].any()
             assert (got_ref[1] == np.float32(NEG_INF)).all()
+        if case == "fault_offset":
+            # a node at DRAIN_LOAD never wins
+            drained = torch.from_numpy(res[:, 0] >= 1e6)
+            picked = got_ref[0][got_ref[0] >= 0].long()
+            assert not drained[picked].any()
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -258,6 +271,8 @@ SPLIT_CASES = {
     "k_40_two_passes": (100, 7, 40, "ties", (4, 12, 52)),
     "n_mod_4": (513, INTERPRET_Q, 8, "weights", (4, 12)),
     "n_2_replicas": (2, 7, 8, "random", (4,)),
+    # DRAIN_LOAD rows on both sides of the chunk boundaries
+    "fault_offset_rows": (100, 7, 8, "fault_offset", (4, 8)),
 }
 
 

@@ -135,6 +135,38 @@ def test_admit_queue_ref_bit_equal_to_jax_scan(name, n, q, r):
         assert placed > 0
 
 
+@pytest.mark.parametrize("n", [64, 513])
+@pytest.mark.parametrize("name", HOOKED + ["flex-brownout", "migrate"])
+def test_admit_queue_ref_on_fault_offset_rows(name, n):
+    """The simulator's fault offsets on the node table (about 30% of the
+    rows at DRAIN_LOAD, 20% flapped to half capacity) and, for
+    flex-brownout, per-task caps (production 1, batch below 1 at this
+    penalty): bit-equal to the reference's scan, a drained row keeps its
+    reserved value exactly and takes no task."""
+    rng = np.random.default_rng(n)
+    state = _state(n, 2, "random", seed=n)
+    kind = rng.random(n)
+    offset = np.where(kind < 0.3, np.float32(admission.DRAIN_LOAD),
+                      np.where(kind < 0.5, np.float32(1 - 0.5),
+                               np.float32(0))).astype(np.float32)
+    state["reserved"] = state["reserved"] + offset[:, None]
+    queue = _queue(33, 2, "random", seed=n)
+    penalty = np.float32(1.8)
+    j_node, j_pl = _jax_admit(name)(
+        JNodeState(**{f: jnp.asarray(v) for f, v in state.items()}),
+        *queue, penalty)
+    t_node, t_pl = _port_admit(name, state, *queue, penalty)
+    _assert_bit_equal(t_pl.numpy(), j_pl, "placements")
+    for field in NodeState._fields:
+        _assert_bit_equal(getattr(t_node, field).numpy(),
+                          getattr(j_node, field), field)
+    drained = kind < 0.3
+    placed = t_pl.numpy()[t_pl.numpy() >= 0]
+    assert len(placed) > 0 and not drained[placed].any()
+    np.testing.assert_array_equal(t_node.reserved.numpy()[drained],
+                                  state["reserved"][drained])
+
+
 def _random_node(n, seed):
     gen = torch.Generator().manual_seed(seed)
     u = lambda *shape: torch.rand(shape, generator=gen)

@@ -30,6 +30,9 @@ from repro_torch.api import Experiment
 from repro_torch.convert import noise_table_from_numpy, taskset_from_numpy
 from repro_torch.core import SimConfig, run
 from repro_torch.core.types import FlexParams
+from repro_torch.faults import FaultConfig
+from repro_torch.guard import GuardConfig
+from repro_torch.migration import MigrationConfig
 from repro_torch.traces import analysis
 
 SMALL = dict(n_nodes=16, n_slots=12, arrivals_per_slot=64, retry_capacity=32)
@@ -188,17 +191,29 @@ def test_experiment_seeds_and_sweep_axes(trace):
 
 
 @pytest.mark.parametrize("field,value,slice_name", [
-    ("faults", object(), "faults"),
-    ("migration", object(), "migration"),
-    ("guard", object(), "guard"),
+    ("faults", FaultConfig(), "faults"),
+    ("migration", MigrationConfig(), "migration"),
+    ("guard", GuardConfig(), "guard"),
     ("retry_backoff", 2, "faults"),
     ("retry_jitter", 3, "faults"),
 ])
 def test_later_slices_raise(trace, field, value, slice_name):
+    """Every SimConfig field runs in the simulator now (migration without
+    faults raises, as in the reference); the serving engine's faults,
+    migration and guard still raise, ROADMAP queue 1 item 6."""
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+
     _, ts = trace
     cfg = SimConfig(**SMALL)._replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=slice_name):
-        run(ts, cfg, "flex-f", device="cpu")
+    if field == "migration":
+        with pytest.raises(ValueError, match="requires fault injection"):
+            run(ts, cfg, "flex-f", device="cpu")
+    else:
+        res = run(ts, cfg, "flex-f", device="cpu")
+        assert res.placement.shape == (ts.num_tasks,)
+    if field == slice_name:
+        with pytest.raises(NotImplementedError, match="item 6"):
+            ServeEngine(EngineConfig(**{field: value}), device="cpu")
 
 
 def test_wavefront_mode_runs(trace):
