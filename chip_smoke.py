@@ -106,8 +106,10 @@ The serving path (launch/serve.py over ServeEngine) at stablelm-3b's full
 width, after phase a and after phase f:
 
   g. the flash-attention kernel against its plain version, on the six
-     shapes of tests/test_kernels_flash.py and stablelm-3b's prefill
-     shapes (B = 1, H = KV = 32, hd = 80, causal, S up to 4096), and on
+     shapes of tests/test_kernels_flash.py, stablelm-3b's prefill
+     shapes (B = 1, H = KV = 32, hd = 80, causal, S up to 4096) and
+     mixtral-8x7b's (H = 32 over KV = 8, hd = 128, window 4096, S up to
+     5000), and on
      one full-width attention layer's (B, S, H, hd) projections through
      ``chunked_attention`` as the serving path calls it, in f32 (max abs
      error within 2e-5) and bf16 (2e-2, and each element within one bf16
@@ -149,6 +151,32 @@ after phase j:
      state and the conv tail); both smoke configs in f32 on the card
      against the CPU port; a profile of a 2048-token mamba2-370m prefill
      and a full decode step.
+
+The serving engine's faults and the MoE family, after phase m:
+
+  r. phase h's model and settings on 4 replicas x 8 slots, 64 requests of
+     its workload, at most 120 steps, flex in wavefront mode: (i) a crash
+     burst on a quarter of the replicas (step 20, 24 steps down), storms
+     and the brownout; (ii) the same announced 4 steps ahead, with live
+     migration; (iii) (ii) with the drift guard (threshold 0.07, cooldown
+     12).  Each run's placements, eviction, crash-eviction and migration
+     streams, every EngineStats counter and the breaker's states equal the
+     same engine's on the CPU step by step; (i) evicts on the crash and
+     browns out, (ii) migrates, (iii) trips and reaches HALF_OPEN; the
+     top-K kernel launches once per admission and migration sweep, flash
+     32 times per prefill; the backend's slots are logged after each run.
+  s. mixtral-8x7b at its published widths (d_model 4096, 32 heads of 128
+     over 8 KV heads, 8 experts top-2, d_ff 14336, window 4096), 16 of its
+     32 layers (the 32 are 93 GB in bf16, more than the card holds; the
+     16 are 46.9 GB), bf16, random weights, behind ``RealModelBackend``
+     over phase h's workload, flex then reserve: 16 flash launches per
+     prefill, decisions equal to the CPU replay's and to phase h's;
+     prefills/s, decode tokens/s, ms per replica decode step beside the
+     weights' bound, a 2048-token prefill's device time split between
+     the experts, the dispatch einsums, the routing and attention, the
+     prefill time at 2047 (odd: one-token groups) and 2048 tokens, peak
+     memory; then a 2-layer full-width prefill through the kernel against
+     the plain attention, last logits within phase i's bf16 tolerance.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
@@ -1686,6 +1714,9 @@ FLASH_TEST_CASES = ((1, 4, 4, 128, 64, True, 0), (2, 4, 2, 256, 64, True, 0),
                     (1, 4, 2, 512, 64, True, 128), (1, 2, 2, 256, 80, True, 0))
 # stablelm-3b's single-request prefill: B = 1, H = KV = 32, hd = 80, causal.
 FLASH_PREFILL_S = (1, 37, 512, 1000, 2048, 4096)
+# mixtral-8x7b's (phase s): B = 1, H = 32 over KV = 8, hd = 128, causal,
+# a window of 4096 (which a prompt past 4096 tokens reaches).
+FLASH_MOE_S = (37, 1329, 2048, 5000)
 FLASH_TIMED_S = (2048, 4096)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # The earlier (mma.sync) design's times at the timed shapes, from PERF.md's
@@ -1751,8 +1782,9 @@ def flash_vs_plain(dev) -> dict:
         f"{torch.backends.cuda.matmul.allow_tf32}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    cases = list(FLASH_TEST_CASES) + [(1, 32, 32, s, 80, True, 0)
-                                      for s in FLASH_PREFILL_S]
+    cases = (list(FLASH_TEST_CASES)
+             + [(1, 32, 32, s, 80, True, 0) for s in FLASH_PREFILL_S]
+             + [(1, 32, 8, s, 128, True, 4096) for s in FLASH_MOE_S])
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for b, h, kv, s, hd, causal, window in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2035,10 +2067,15 @@ def _full_config():
     return get_config(ARCH)
 
 
-def _serve(policy: str, dev, decode, on_admit, on_evict) -> dict:
-    """Run the phase-h workload through a ServeEngine on ``dev``; returns
-    the engine and its decisions step by step.  ``decode(replica, reqs)``
+def _serve(policy: str, dev, decode, on_admit, on_evict, *,
+           replicas: int = SERVE["n_replicas"],
+           requests: int = SERVE_REQUESTS, engine_kw=None) -> dict:
+    """Run ``requests`` requests of the phase-h workload through a
+    ServeEngine of ``replicas`` replicas on ``dev`` (``engine_kw``: more
+    EngineConfig fields, as faults, migration and guard); returns the
+    engine and its decisions step by step.  ``decode(replica, reqs)``
     runs the replica's decode; the engine sees SERVE_STEP_TIME."""
+    from repro_torch.api import admission
     from repro_torch.launch.serve import make_workload
     from repro_torch.serving import EngineConfig, ServeEngine
 
@@ -2047,18 +2084,22 @@ def _serve(policy: str, dev, decode, on_admit, on_evict) -> dict:
         return SERVE_STEP_TIME
 
     eng = ServeEngine(EngineConfig(
-        n_replicas=SERVE["n_replicas"], kv_budget_tokens=SERVE_BUDGET,
-        policy=policy, max_active_per_replica=SERVE["slots"]),
-        decode_fn=decode_fn, device=dev)
-    out = dict(eng=eng, placed=[], evicted=[], admitted=[], resident=[],
-               held_back=0)
+        n_replicas=replicas, kv_budget_tokens=SERVE_BUDGET,
+        policy=policy, max_active_per_replica=SERVE["slots"],
+        **(engine_kw or {})), decode_fn=decode_fn, device=dev)
+    out = dict(eng=eng, requests=requests, placed=[], evicted=[],
+               admitted=[], resident=[], moved=[], counters=[], held_back=0,
+               migration_sweeps=0)
 
     def admit(req):
         out["placed"].append((eng.stats.steps, req.rid, req.replica))
         on_admit(req)
 
     def evict(req):
-        out["evicted"].append((eng.stats.steps, req.rid))
+        # the counters tell an overflow eviction from a crash's
+        out["evicted"].append((eng.stats.steps, req.rid,
+                               eng.stats.evicted_events,
+                               eng.stats.fault_evictions))
         on_evict(req)
 
     eng.on_admit, eng.on_evict = admit, evict
@@ -2072,19 +2113,40 @@ def _serve(policy: str, dev, decode, on_admit, on_evict) -> dict:
         return n
 
     eng.admit_pending = admit_and_look
-    for req in make_workload(SERVE_REQUESTS, prompt=SERVE_PROMPT,
+    if eng.cfg.migration is not None:
+        try_migrate = eng._try_migrate
+
+        def migrate(cands, extra_off=None):
+            sweeps = admission.SWEEPS
+            moved = try_migrate(cands, extra_off)
+            out["migration_sweeps"] += admission.SWEEPS - sweeps
+            out["moved"] += [(eng.stats.steps, r.rid, r.replica)
+                             for r in moved]
+            return moved
+
+        eng._try_migrate = migrate
+    for req in make_workload(requests, prompt=SERVE_PROMPT,
                              true=SERVE_TRUE):
         eng.submit(req)
     return out
 
 
-def _serve_steps(run: dict) -> None:
+def _serve_steps(run: dict, steps: int = SERVE_STEPS) -> None:
+    """Step the engine until every request finished, at most ``steps``
+    times; records each step's counters and breaker state."""
+    import dataclasses
+
     eng = run["eng"]
-    for _ in range(SERVE_STEPS):
+    for _ in range(steps):
         eng.step()
         run["admitted"].append(eng.stats.admitted)
         run["resident"].append(sum(len(a) for a in eng.active.values()))
-        if eng.stats.finished == SERVE_REQUESTS:
+        counters = dataclasses.asdict(eng.stats)
+        del counters["admit_latency_s"]            # wall clock
+        guard = ((eng._g_state, eng._g_timer, eng._g_err_q)
+                 if eng.cfg.guard is not None else None)
+        run["counters"].append((counters, guard))
+        if eng.stats.finished == run["requests"]:
             break
 
 
@@ -2105,38 +2167,48 @@ def _reset_kernel_launches() -> None:
 def _per_prefill(cfg) -> dict:
     """The model kernels' launches in one prefill of ``cfg``."""
     from repro_torch.models.model import n_shared_invocations
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
     return {"flash_attention": n_shared_invocations(cfg),
             "ssd_scan": cfg.n_layers}
 
 
-def _serve_model(dev, cfg, policies) -> dict:
+def _serve_model(dev, cfg, policies, *, replicas=SERVE["n_replicas"],
+                 requests=SERVE_REQUESTS, steps=SERVE_STEPS, engine_kw=None,
+                 tag=None, probe=None) -> dict:
     """``RealModelBackend`` with ``cfg`` (random weights, seed 0) behind the
-    engine, over the phase-h workload, once per policy.  Checks each run
-    and returns policy -> its decisions and kernel launches."""
+    engine, over the phase-h workload (or ``requests`` of it on
+    ``replicas`` replicas for at most ``steps`` steps, with more
+    EngineConfig fields in ``engine_kw``), once per policy.  Checks each
+    run against the same engine on the CPU, calls ``probe(backend, run)``
+    after each, and returns policy -> its decisions, counters and kernel
+    launches."""
     from repro_torch.launch.serve import RealModelBackend
 
-    tag = f"[serve {cfg.name}]"
+    tag = tag or f"[serve {cfg.name}]"
+    serve_kw = dict(replicas=replicas, requests=requests,
+                    engine_kw=engine_kw)
     log(f"{tag} full width: {cfg.n_layers} layers ({cfg.family}), d_model "
         f"{cfg.d_model}, vocab {cfg.vocab_padded}, {cfg.dtype}; random "
-        f"weights (seed 0); {SERVE['n_replicas']} replicas x "
-        f"{SERVE['slots']} slots, max_seq {SERVE['max_seq']}, kv budget "
-        f"{SERVE_BUDGET} tokens per replica, step time seen by the engine "
-        f"{SERVE_STEP_TIME}")
+        f"weights (seed 0); {replicas} replicas x {SERVE['slots']} slots, "
+        f"max_seq {SERVE['max_seq']}, kv budget {SERVE_BUDGET} tokens per "
+        f"replica, step time seen by the engine {SERVE_STEP_TIME}; "
+        f"{requests} requests, at most {steps} steps"
+        + (f"; {engine_kw}" if engine_kw else ""))
     per_prefill = _per_prefill(cfg)
     runs = {}
     for policy in policies:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        backend = RealModelBackend(cfg.name, SERVE["n_replicas"],
-                                   SERVE["slots"], SERVE["max_seq"], seed=0,
-                                   cfg=cfg, device=dev)
+        backend = RealModelBackend(cfg.name, replicas, SERVE["slots"],
+                                   SERVE["max_seq"], seed=0, cfg=cfg,
+                                   device=dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in backend.params.parameters())
         setup = time.perf_counter() - t0
         times = {"prefill": 0.0, "decode": 0.0}
+        calls = {"prefill": 0, "decode": 0}
 
         def timed_hook(fn, name):
             def hook(*args):
@@ -2144,14 +2216,15 @@ def _serve_model(dev, cfg, policies) -> dict:
                 fn(*args)
                 torch.cuda.synchronize()
                 times[name] += time.perf_counter() - t
+                calls[name] += 1
             return hook
 
         run = _serve(policy, dev, timed_hook(backend.decode_fn, "decode"),
                      timed_hook(backend.on_admit, "prefill"),
-                     backend.on_evict)
+                     backend.on_evict, **serve_kw)
         _reset_kernel_launches()
         t0 = time.perf_counter()
-        _serve_steps(run)
+        _serve_steps(run, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c, launches = _counts(), _kernel_launches()
@@ -2160,27 +2233,29 @@ def _serve_model(dev, cfg, policies) -> dict:
         peak = torch.cuda.max_memory_allocated()
         log(f"{tag} {policy} ({eng.policy.name}, wavefront): "
             f"{st.steps} steps in {wall:.2f} s; finished {st.finished}/"
-            f"{SERVE_REQUESTS}, admitted {st.admitted}, evictions "
-            f"{st.evicted_events} {run['evicted']} (step, rid); budget held "
-            f"a request back beside a free slot in {run['held_back']} "
-            f"steps; resident per step mean "
-            f"{statistics.fmean(run['resident']):.2f}, peak "
+            f"{requests}, admitted {st.admitted}, evictions "
+            f"{st.evicted_events} {run['evicted']} (step, rid, overflow "
+            f"and crash evictions so far); budget held a request back "
+            f"beside a free slot in {run['held_back']} steps; resident per "
+            f"step mean {statistics.fmean(run['resident']):.2f}, peak "
             f"{max(run['resident'])}; mean util "
             f"{statistics.fmean(st.util_series):.4f}, final QoS "
             f"{st.qos_series[-1]:.4f}, final P {st.penalty_series[-1]:.4f}")
         log(f"{tag} {policy}: {st.tokens_generated} tokens in "
-            f"{times['decode']:.3f} s of decode = "
-            f"{st.tokens_generated / times['decode']:.1f} decode tokens/s; "
-            f"{backend.prefills} prefills for {st.admitted} admissions of "
-            f"{SERVE_REQUESTS} requests in {times['prefill']:.3f} s = "
-            f"{backend.prefills / max(times['prefill'], 1e-9):.2f} "
+            f"{times['decode']:.3f} s of decode ({calls['decode']} replica "
+            f"steps, {times['decode'] * 1e3 / max(calls['decode'], 1):.2f} "
+            f"ms each) = {st.tokens_generated / times['decode']:.1f} decode "
+            f"tokens/s; {backend.prefills} prefills for {st.admitted} "
+            f"admissions of {requests} requests in {times['prefill']:.3f} s"
+            f" = {backend.prefills / max(times['prefill'], 1e-9):.2f} "
             f"prefills/s; set-up {setup:.2f} s ({n_params / 1e9:.3f} B "
             f"parameters); peak memory {peak / 2**30:.2f} GiB")
         log(f"{tag} {policy}: launches " + ", ".join(
             f"{k} {v} (= {per_prefill[k]} x {backend.prefills} prefills)"
             for k, v in launches.items())
             + f", flex_score_batch_topk {c['topk']}; admission decisions "
-            f"{c['decisions']}, rounds {c['rounds']}, sweeps {c['sweeps']}")
+            f"{c['decisions']}, rounds {c['rounds']}, sweeps {c['sweeps']} "
+            f"({run['migration_sweeps']} of them migration sweeps)")
         if backend.prefills == 0 or any(
                 launches[k] != per_prefill[k] * backend.prefills
                 for k in launches):
@@ -2193,7 +2268,7 @@ def _serve_model(dev, cfg, policies) -> dict:
         if policy == "flex" and (c["topk"] == 0 or c["topk"] != c["sweeps"]):
             raise AssertionError(f"flex: {c['topk']} top-K launches for "
                                  f"{c['sweeps']} sweeps")
-        for r in range(SERVE["n_replicas"]):
+        for r in range(replicas):
             toks = backend.tokens[r]
             if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
                 raise AssertionError(f"{policy}: replica {r} decoded a "
@@ -2205,18 +2280,24 @@ def _serve_model(dev, cfg, policies) -> dict:
         # The same engine on the CPU, with no model behind it: decisions
         # do not depend on what the model computes.
         cpu = _serve(policy, torch.device("cpu"), lambda *a: None,
-                     lambda req: None, lambda req: None)
-        _serve_steps(cpu)
-        for key in ("placed", "evicted", "admitted"):
+                     lambda req: None, lambda req: None, **serve_kw)
+        _serve_steps(cpu, steps)
+        for key in ("placed", "evicted", "admitted", "moved", "counters"):
             if cpu[key] != run[key]:
                 raise AssertionError(f"{policy}: {key} on the card differ "
                                      f"from the CPU engine's")
-        log(f"{tag} {policy}: placements, evictions and admissions equal "
-            f"the CPU engine's ({len(run['placed'])} placements)")
+        log(f"{tag} {policy}: placements, evictions, migrations, "
+            f"admissions, every EngineStats counter and the breaker's "
+            f"states equal the CPU engine's, step by step "
+            f"({len(run['placed'])} placements, {len(run['moved'])} "
+            f"migrations)")
+        if probe is not None:
+            probe(backend, run)
         runs[policy] = dict(placed=run["placed"], evicted=run["evicted"],
-                            admitted=run["admitted"],
+                            admitted=run["admitted"], moved=run["moved"],
+                            counters=run["counters"],
                             evicted_events=st.evicted_events,
-                            launches=launches)
+                            launches=dict(launches, topk=c["topk"]))
         del backend, eng, run
         gc.collect()   # the engine's wrapped hooks form reference cycles
     return runs
@@ -2472,6 +2553,263 @@ def final_state_check(dev) -> None:
         _smoke_against_cpu(dev, arch)
 
 
+# ---------------------------------------------------------------------------
+# phase r: the serving engine under faults, migration and the guard
+# ---------------------------------------------------------------------------
+
+# Phase h's model and settings on 4 replicas x 8 slots (about 6.7 GB of
+# cache a replica), 64 requests of its workload, at most 120 steps.
+FAULT_SERVE = dict(replicas=4, requests=64, steps=120)
+# A burst crashes a quarter of the replicas (replica 0) for 24 steps, with
+# straggler storms and the brownout.  The burst lands at step 20, not 12:
+# the workload's requests generate 16 tokens or more, so none finishes
+# before step 16, and until one does no replica has room to take a moved
+# request; replaying this engine on the CPU, a burst at step 12 with 4
+# steps of warning moved none, at step 20 it moves 2.
+FAULT_BURST = dict(burst_slot=20, burst_frac=0.25, crash_duration=24,
+                   storm_rate=0.02, degrade=True)
+FAULT_WARN = 4
+FAULT_MIGRATION = dict(bandwidth=8, pool_size=16, migrate_cost=2)
+# Run (iii)'s guard, chosen on the CPU replay: the drift statistic stays
+# near 0.001 until the first requests finish (step 16), reaches 0.067 over
+# the warning steps and 0.105 once the crash lands; a threshold of 0.07
+# trips there (step 24), after the drain pass has had its chance, and a
+# cooldown of 12 steps leaves the half-open probe (steps 36-43) and the
+# close inside the run.  The defaults (0.15, 24) never trip here.
+FAULT_GUARD = dict(trip_threshold=0.07, cooldown=12)
+
+
+def _fault_engine_runs():
+    from repro_torch.faults import FaultConfig
+    from repro_torch.guard import GuardConfig
+    from repro_torch.migration import MigrationConfig
+
+    faults = FaultConfig(**FAULT_BURST)
+    warned = faults._replace(warn_slots=FAULT_WARN)
+    mig = MigrationConfig(**FAULT_MIGRATION)
+    return (("(i)", dict(faults=faults)),
+            ("(ii)", dict(faults=warned, migration=mig)),
+            ("(iii)", dict(faults=warned, migration=mig,
+                           guard=GuardConfig(**FAULT_GUARD))))
+
+
+def _slot_bookkeeping(tag: str):
+    """A probe that logs the backend's slots after a run: a migration
+    tells the backend nothing, so a moved request keeps its old slot
+    number on its new replica, where a request placed there may hold the
+    same number."""
+    def probe(backend, run):
+        placed = {rid: rep for _, rid, rep in run["placed"]}
+        moves = []
+        for step, rid, to in run["moved"]:
+            slot = backend.slot_of.get(rid)
+            also = [r for r, rep in placed.items() if rep == to
+                    and r != rid and backend.slot_of.get(r) == slot]
+            moves.append((step, rid, to, slot, also))
+        log(f"{tag} backend slots after the run: free lists "
+            f"{backend.free}; {len(backend.slot_of)} requests hold a slot; "
+            f"moves (step, rid, to replica, the slot it keeps, requests "
+            f"placed on that replica with the same slot): {moves}")
+    return probe
+
+
+def serve_faults(dev) -> dict:
+    """Phase r: stablelm-3b at full width behind an engine with a crash
+    burst, storms and the brownout, then with migration, then with the
+    guard too; returns the flash and top-K kernels' launches."""
+    cfg = _full_config()
+    total = {"flash_attention": 0, "flex_score_batch_topk": 0}
+    for name, kw in _fault_engine_runs():
+        tag = f"[serve faults {name}]"
+        runs = _serve_model(dev, cfg, ("flex",), tag=tag, engine_kw=kw,
+                            probe=_slot_bookkeeping(tag), **FAULT_SERVE)
+        run = runs["flex"]
+        last = run["counters"][-1][0]
+        states = "".join(str(g[0]) for _, g in run["counters"]
+                         if g is not None)
+        log(f"{tag} " + ", ".join(
+            f"{k} {last[k]}" for k in (
+                "evicted_events", "fault_evictions", "brownout_steps",
+                "brownout_deferred", "migrations", "migration_failed",
+                "guard_trips", "guard_open_steps", "guard_deferred"))
+            + f"; migrations {run['moved']} (step, rid, to)"
+            + (f"; breaker per step {states}" if states else ""))
+        if name == "(i)" and not (last["fault_evictions"] > 0
+                                  and last["brownout_steps"] > 0):
+            raise AssertionError(f"phase r {name}: no crash eviction or no "
+                                 f"brownout")
+        if name == "(ii)" and last["migrations"] == 0:
+            raise AssertionError(f"phase r {name}: nothing migrated")
+        if name == "(iii)" and not (last["guard_trips"] >= 1
+                                    and "2" in states):
+            raise AssertionError(f"phase r {name}: the breaker did not trip "
+                                 f"and reach HALF_OPEN ({states})")
+        total["flash_attention"] += run["launches"]["flash_attention"]
+        total["flex_score_batch_topk"] += run["launches"]["topk"]
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase s: mixtral-8x7b at full width, 16 of its 32 layers
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x7b"
+# 32 layers at full width are 46.7 B parameters, 93 GB in bf16, more than
+# one 80 GB card: the phase keeps 16 (23.5 B parameters, 46.9 GB).
+MOE_LAYERS = 16
+MOE_SPLIT_S = 2048              # a power of two: groups of 2048, cap 640
+MOE_ODD_S = 2047                # odd: one-token groups, cap 2
+MOE_CHECK_LAYERS = 2
+MOE_CHECK_S = 2048
+
+
+def _moe_config(n_layers: int = MOE_LAYERS):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers)
+
+
+def _decode_bound_ms(params, slots: int) -> float:
+    """Bytes one decode step of a replica must read, weights only: every
+    parameter but the embedding table, of which ``slots`` rows, over
+    3.35 TB/s."""
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    emb = params.tok_emb
+    n_bytes -= (emb.shape[0] - slots) * emb.shape[1] * emb.element_size()
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _moe_prefill_split(model, params, s: int, dev) -> dict:
+    """One prefill of ``s`` tokens with CUDA events around attention, the
+    routing, the experts and each MoE block: ms of each on the device's
+    timeline; the dispatch einsums are the MoE blocks less the routing and
+    the experts."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    spans = []
+    originals = {(L, "chunked_attention"): "attention",
+                 (MOE, "_route"): "routing", (MOE, "_experts"): "experts",
+                 (MOE, "moe_apply_einsum"): "moe"}
+
+    def spanned(fn, name):
+        def wrapper(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((name, start, end))
+            return out
+        return wrapper
+
+    saved = {key: getattr(*key) for key in originals}
+    toks = torch.randint(0, model.cfg.vocab_size, (1, s), device=dev)
+    model.prefill(params, {"tokens": toks})               # warm-up
+    try:
+        for (mod, attr), name in originals.items():
+            setattr(mod, attr, spanned(saved[(mod, attr)], name))
+        total = spanned(lambda: model.prefill(params, {"tokens": toks}),
+                        "prefill")
+        total()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    ms = {}
+    for name, start, end in spans:
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+    ms["dispatch"] = ms["moe"] - ms["routing"] - ms["experts"]
+    return ms
+
+
+def _moe_probe(dev):
+    def probe(backend, run):
+        if run["eng"].cfg.policy != "flex":
+            return
+        model, params = backend.model, backend.params
+        bound = _decode_bound_ms(params, SERVE["slots"])
+        log(f"[serve moe] decode bound: {bound:.2f} ms a replica step (the "
+            f"weights one step reads at 3.35 TB/s; the KV cache not "
+            f"counted)")
+        ms = _moe_prefill_split(model, params, MOE_SPLIT_S, dev)
+        log(f"[serve moe] prefill of {MOE_SPLIT_S} tokens, CUDA-event "
+            f"spans: {ms['prefill']:.2f} ms in all; experts "
+            f"{ms['experts']:.2f}, dispatch einsums {ms['dispatch']:.2f}, "
+            f"routing {ms['routing']:.2f}, attention (flash) "
+            f"{ms['attention']:.2f}, the rest "
+            f"{ms['prefill'] - ms['moe'] - ms['attention']:.2f} ms")
+        for s in (MOE_ODD_S, MOE_SPLIT_S):
+            toks = torch.randint(0, model.cfg.vocab_size, (1, s),
+                                 device=dev)
+            t = _event_ms(lambda: model.prefill(params, {"tokens": toks}),
+                          reps=3)
+            log(f"[serve moe] prefill of {s} tokens: {t:.2f} ms (median of "
+                f"3, CUDA events)")
+    return probe
+
+
+def moe_against_plain_attention(dev) -> None:
+    """A 2-layer full-width mixtral prefill through the flash kernel,
+    against the same prefill with the plain attention: last logits within
+    phase i's bf16 tolerance."""
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    cfg = _moe_config(MOE_CHECK_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_CHECK_S), generator=gen,
+                         device=dev)
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    before = fa.LAUNCHES
+    got, _ = model.prefill(params, {"tokens": toks})
+    launched = fa.LAUNCHES - before
+    chunked = L.chunked_attention
+    L.chunked_attention = lambda q, k, v, causal=True, window=0: \
+        L.naive_attention(q, k, v, causal=causal, window=window)
+    try:
+        want, _ = model.prefill(params, {"tokens": toks})
+    finally:
+        L.chunked_attention = chunked
+    real = slice(0, cfg.vocab_size)
+    got, want = got[:, real].float(), want[:, real].float()
+    err = float((got - want).abs().max())
+    log(f"[serve moe] {MOE_CHECK_LAYERS}-layer full-width prefill of "
+        f"{MOE_CHECK_S} tokens, flash kernel ({launched} launches) against "
+        f"the plain attention: last logits max abs difference {err:.4f} "
+        f"(tolerance {PREFILL_DECODE_TOL}; max |logit| "
+        f"{float(want.abs().max()):.3f}); argmax equal: "
+        f"{bool(got.argmax() == want.argmax())}")
+    if not (torch.isfinite(got).all() and err <= PREFILL_DECODE_TOL
+            and launched == MOE_CHECK_LAYERS):
+        raise AssertionError(f"mixtral: the kernel path and the plain "
+                             f"attention disagree by {err}")
+
+
+def serve_mixtral(dev, ref_runs) -> dict:
+    """Phase s: mixtral-8x7b at full width (16 of 32 layers) behind the
+    engine, flex then reserve; returns the flash kernel's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve moe] {MOE_ARCH}: {MOE_LAYERS} of its 32 layers (depth cut "
+        f"to fit one 80 GB card: 46.9 GB of bf16 weights), every width as "
+        f"published; allocated before the phase "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    runs = _serve_model(dev, _moe_config(), ("flex", "reserve"),
+                        probe=_moe_probe(dev))
+    _same_serving_decisions(MOE_ARCH, runs, ref_runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_against_plain_attention(dev)
+    return {"flash_attention": sum(r["launches"]["flash_attention"]
+                                   for r in runs.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2548,6 +2886,15 @@ def main() -> int:
     log(f"[serve] launches on the SSM path: ssd_scan {launches['ssd_scan']}"
         f" (mamba2-370m, flex), ssd_scan {zamba['ssd_scan']} and "
         f"flash_attention {zamba['flash_attention']} (zamba2-7b, flex)")
+    faulted = timed("r", serve_faults)
+    moe = timed("s", serve_mixtral, serve_runs)
+    log(f"[launches] phase r: flash_attention "
+        f"{faulted['flash_attention']}, flex_score_batch_topk "
+        f"{faulted['flex_score_batch_topk']}; phase s: flash_attention "
+        f"{moe['flash_attention']}")
+    launches["flash_attention"] += (faulted["flash_attention"]
+                                    + moe["flash_attention"])
+    launches["flex_score_batch_topk"] += faulted["flex_score_batch_topk"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:

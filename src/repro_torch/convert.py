@@ -100,16 +100,17 @@ def _leaf(a, device) -> torch.Tensor:
 def model_params_from_numpy(cfg, tree: Mapping[str, Any], *,
                             device="cuda"):
     """The reference's ``model.init`` tree (numpy leaves, ``layers``
-    stacked on a leading L axis, the hybrid's ``shared_block`` not) ->
-    the port's :class:`LM`."""
+    stacked on a leading L axis, the hybrid's ``shared_block`` not; a moe
+    layer's ``moe`` group with its router, expert weights and nested
+    ``shared`` MLP) -> the port's :class:`LM`."""
     from repro_torch.models.model import LM, require_ported
 
     require_ported(cfg)
 
     def groups(t, i=None):
-        return {group: {name: _leaf(leaf if i is None else leaf[i], device)
-                        for name, leaf in leaves.items()}
-                for group, leaves in t.items()}
+        return {name: (groups(leaf, i) if isinstance(leaf, Mapping)
+                       else _leaf(leaf if i is None else leaf[i], device))
+                for name, leaf in t.items()}
 
     layers = [groups(tree["layers"], i) for i in range(cfg.n_layers)]
     lm_head = tree.get("lm_head")

@@ -47,19 +47,25 @@ def ring_chronological(buffer: torch.Tensor, t: int) -> torch.Tensor:
     return torch.roll(buffer, -(t % buffer.shape[0] + 1), dims=0)
 
 
-def window_quantile(buffer: torch.Tensor, q: float) -> torch.Tensor:
+def window_quantile(buffer: torch.Tensor, q: float, *,
+                    fuse_high: bool = False) -> torch.Tensor:
     """The ``q``-quantile over axis 0, linear interpolation (numpy's
     default method).
 
     Rounded as ``jnp.quantile`` computes it: the position ``q * (W - 1)``
     in float32, then ``low * (1 - w) + high * w`` with the first product
-    fused into the sum, as XLA compiles it.
+    fused into the sum, as XLA compiles it inside a jitted program.
+    ``fuse_high`` fuses the other product instead, as XLA compiles
+    ``jnp.quantile`` called on its own, with ``q`` a run-time input.
     """
     pos = np.float32(q) * np.float32(buffer.shape[0] - 1)
     low, high = math.floor(pos), math.ceil(pos)
     w_high = np.float32(pos - np.float32(low))
     w_low = np.float32(1.0) - w_high
     ordered = torch.sort(buffer, dim=0).values
+    if fuse_high:
+        return fma(ordered[high], float(w_high),
+                   ordered[low] * float(w_low))
     return fma(ordered[low], float(w_low), ordered[high] * float(w_high))
 
 

@@ -20,12 +20,15 @@ from repro_torch.guard.watchdog import (  # noqa: F401
     blend_estimate,
     breaker_step,
     confidence,
+    confidence_eager,
     drift_sample,
     init_window,
     penalty_scale,
+    penalty_scale_eager,
     push_errors,
     reclaim_width,
     trip_statistic,
+    trip_statistic_eager,
 )
 
 

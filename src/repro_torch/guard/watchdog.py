@@ -20,6 +20,11 @@ Rounding follows the reference as XLA compiles it: the mean over nodes
 adds in XLA's order (``numerics.xla_sum``) and multiplies by ``1 / N``;
 the division by the trip threshold is a multiplication by its rounded
 reciprocal; ``1 + g * conf`` and the blend are fused multiply-adds.
+The serving engine runs the reference's watchdog eagerly, op by op, and
+there the division is a true division, ``1 + g * conf`` rounds twice,
+and ``jnp.quantile``, which then takes ``q`` as a run-time input, fuses
+the other product of its interpolation: ``trip_statistic_eager``,
+``confidence_eager`` and ``penalty_scale_eager`` round as it does.
 """
 from __future__ import annotations
 
@@ -62,6 +67,12 @@ def trip_statistic(window: torch.Tensor, q: float) -> torch.Tensor:
     return window_quantile(window, q).max()
 
 
+def trip_statistic_eager(window: torch.Tensor, q: float) -> torch.Tensor:
+    """``trip_statistic`` as eager JAX rounds it: ``jnp.quantile`` with
+    the other product of its interpolation fused."""
+    return window_quantile(window, q, fuse_high=True).max()
+
+
 def confidence(err_q: torch.Tensor, gcfg) -> torch.Tensor:
     """() f32 in [0, 1]: the drift as a fraction of the trip bar."""
     inv = float(np.float32(1.0) / np.float32(gcfg.trip_threshold))
@@ -73,6 +84,18 @@ def penalty_scale(err_q: torch.Tensor, gcfg) -> torch.Tensor:
     see ``P * penalty_scale``, a slot constant."""
     return fma(float(np.float32(gcfg.guard_scale)), confidence(err_q, gcfg),
                1.0)
+
+
+def confidence_eager(err_q: float, gcfg) -> np.float32:
+    """``confidence`` as eager JAX rounds it: a float32 division."""
+    c = np.float32(err_q) / np.float32(gcfg.trip_threshold)
+    return min(max(c, np.float32(0.0)), np.float32(1.0))
+
+
+def penalty_scale_eager(err_q: float, gcfg) -> np.float32:
+    """``penalty_scale`` as eager JAX rounds it: product, then sum."""
+    return np.float32(1.0) + (np.float32(gcfg.guard_scale)
+                              * confidence_eager(err_q, gcfg))
 
 
 def breaker_step(state: torch.Tensor, timer: torch.Tensor,

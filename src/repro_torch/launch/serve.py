@@ -1,7 +1,7 @@
 """Real-model serving driver: Flex admission over live KV caches.
 
 Port of ``repro.launch.serve``.  Each replica is a slot-batched decode
-instance of the model (dense, ssm or hybrid): a cache with ``slots``
+instance of the model (dense, moe, ssm or hybrid): a cache with ``slots``
 sequences.  On admission the engine's hook runs a single-request prefill
 (on the card, attention through the flash-attention kernel and the Mamba2
 scan through the SSD scan kernel) and writes it into the replica's slot
@@ -12,6 +12,7 @@ Flex decides which replica takes each request.
   PYTHONPATH=src python -m repro_torch.launch.serve --policy reserve
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b
   PYTHONPATH=src python -m repro_torch.launch.serve --stream burst --rate 2 \\
       --steps 200 --mode wavefront
   # add --device cpu to run on the CPU
@@ -20,7 +21,10 @@ The backend keeps the reference's cache semantics exactly: a replica's
 single ``len`` counts its decode steps from 0 (prefill surgery leaves it
 alone), every slot's new K/V is written at that shared position (clamped
 to ``max_seq - 1``), and a slot is freed only on eviction, so a replica
-stops prefilling once its slots have all been used.
+stops prefilling once its slots have all been used.  An evicted request's
+slot goes to the last replica's free list (the engine sets its replica to
+-1 first), and a live migration tells the backend nothing: the moved
+request keeps its old slot number on the new replica.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The model substrate (dense, ssm and hybrid families) on PyTorch."""
+"""The model substrate (dense, moe, ssm and hybrid families) on PyTorch."""
 from repro_torch.models.model import (  # noqa: F401
     LM,
     Model,

@@ -1,5 +1,5 @@
-"""Model builder (port of ``repro.models.model``): the dense, ssm and
-hybrid families.
+"""Model builder (port of ``repro.models.model``): the dense, moe, ssm
+and hybrid families.
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
@@ -20,8 +20,12 @@ reference returns new arrays) and returns a new dict around them; like
 the reference's ``dynamic_update_slice`` it clamps the K/V write
 position to Smax - 1.
 
-The moe, encdec and vlm families raise NotImplementedError; ``loss`` and
-training are a later slice (ROADMAP queue 1 item 8).
+A moe layer's ``moe`` group holds the router, the experts' weights and,
+for llama4-scout, a nested ``shared`` MLP group; prefill and decode both
+run the one-hot einsum dispatch (``moe.moe_apply_einsum``), as the
+reference's serving does.  The encdec and vlm families raise
+NotImplementedError; they, ``loss`` and training are a later slice
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -32,16 +36,16 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Batch = Dict[str, torch.Tensor]
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 MAMBA = ("ssm", "hybrid")            # the families with Mamba2 layers
 _LATER = {
-    "moe": "ROADMAP queue 1 item 8 (models/moe.py)",
-    "encdec": "ROADMAP queue 1 item 8 (the encoder-decoder stack)",
-    "vlm": "ROADMAP queue 1 item 8 (the VLM patch front end)",
+    "encdec": "ROADMAP queue 1 item 7 (the encoder-decoder stack)",
+    "vlm": "ROADMAP queue 1 item 7 (the VLM patch front end)",
 }
 
 
@@ -49,18 +53,37 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"{_LATER.get(cfg.family, 'ROADMAP queue 1 item 8')} brings it")
+            f"{_LATER.get(cfg.family, 'ROADMAP queue 1 item 7')} brings it")
 
 
-def _params(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+class _Group(nn.Module):
+    """A parameter group with nested groups (the moe group's ``shared``),
+    read with ``[]`` as a ParameterDict is."""
+
+    def __init__(self, tree):
+        super().__init__()
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                self.add_module(name, _params(leaf))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(leaf, requires_grad=False))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+
+def _params(tree):
+    if any(isinstance(leaf, dict) for leaf in tree.values()):
+        return _Group(tree)
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tree.items()})
 
 
 class Block(nn.Module):
     """One layer's parameter groups, by the reference's names: ln1, attn,
-    ln2, mlp (a transformer layer or the hybrid's shared block), or ln1,
-    ssm (a Mamba2 layer)."""
+    ln2, mlp (a transformer layer or the hybrid's shared block), ln1,
+    attn, ln2, moe (an MoE layer), or ln1, ssm (a Mamba2 layer)."""
 
     def __init__(self, tree: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
@@ -152,26 +175,35 @@ def _layer_init(cfg: ModelConfig, gen: torch.Generator):
     if cfg.family in MAMBA:
         return {"ln1": L.norm_init(cfg, cfg.d_model, gen.device),
                 "ssm": SSM.ssm_init(cfg, gen)}
-    return {"ln1": L.norm_init(cfg, cfg.d_model, gen.device),
-            "attn": _attn_init(cfg, gen),
-            "ln2": L.norm_init(cfg, cfg.d_model, gen.device),
-            "mlp": L.mlp_init(cfg, gen, cfg.d_model, cfg.d_ff)}
+    p = {"ln1": L.norm_init(cfg, cfg.d_model, gen.device),
+         "attn": _attn_init(cfg, gen),
+         "ln2": L.norm_init(cfg, cfg.d_model, gen.device)}
+    if cfg.family == "moe":
+        p["moe"] = MOE.moe_init(cfg, gen, cfg.d_model, cfg.d_ff)
+    else:
+        p["mlp"] = L.mlp_init(cfg, gen, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _ffn(cfg, lp: Block, x):
+    """The layer's MLP, or its MoE in the einsum dispatch form."""
+    if cfg.family == "moe":
+        return MOE.moe_apply_einsum(cfg, lp.moe, x)[0]
+    return L.mlp_apply(cfg, lp.mlp, x)
 
 
 def _block_full(cfg, lp: Block, h):
     """Transformer block, full sequence.  Returns (h, (k, v))."""
     y, kv = _attn_full(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1))
     h = h + y
-    y = L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
-    return h + y, kv
+    return h + _ffn(cfg, lp, L.apply_norm(cfg, h, lp.ln2)), kv
 
 
 def _block_decode(cfg, lp: Block, h, kc, vc, pos):
     y, kc, vc = _attn_decode(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1),
                              kc, vc, pos)
     h = h + y[:, None, :]
-    y = L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
-    return h + y, kc, vc
+    return h + _ffn(cfg, lp, L.apply_norm(cfg, h, lp.ln2)), kc, vc
 
 
 # ---------------------------------------------------------------------------

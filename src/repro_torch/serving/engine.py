@@ -33,9 +33,25 @@ replica ``drain_slowdown`` times slower than the mean is drained.  When a
 replica's real usage overflows its budget, the newest admissions are
 evicted and re-queued FIFO-stable ahead of fresh arrivals.
 
+With ``EngineConfig(faults=...)`` replicas crash (their residents are
+evicted and re-queued) and straggler storms slow their decode; with
+``degrade=True`` a windowed QoS below the threshold defers sub-production
+admissions (brownout).  With ``migration=...`` (which requires
+``faults``) crashes are announced ``warn_slots`` steps ahead and the
+drain pass moves residents to healthy replicas through the ``migrate``
+policy, progress kept at a ``migrate_cost`` stall; an overflowing
+replica tries migrate-then-shed before it evicts.  With ``guard=...``
+the drift watchdog's breaker defers sub-production admissions while
+OPEN (judged against estimates blended toward the declared footprints)
+and lets a FIFO-head trickle through while HALF_OPEN.  The fault draws
+are numpy's, as the reference's, so they are bit-identical.  The engine
+runs the guard eagerly, as the reference's engine does: its trip
+statistic, confidence and penalty scale round as eager JAX does
+(``guard.watchdog``'s ``*_eager``), not as the simulator's jitted scan.
+
 The estimator's noise comes from the port's noise source (the reference
 folds its key with the step); the default ``current`` estimator draws
-none.  Faults, migration and the guard are later slices and raise.
+none.
 """
 from __future__ import annotations
 
@@ -49,14 +65,17 @@ import numpy as np
 import torch
 
 from repro_torch.api import admission
+from repro_torch.api.policies import MigratePolicy
 from repro_torch.api.protocols import (policy_prepare_params,
                                        policy_queue_order)
 from repro_torch.api.registry import get_policy
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.penalty import update_penalty
-from repro_torch.core.types import (CPU, MEM, NUM_SRC_BUCKETS,
-                                    ControllerState, FlexParams, NodeState)
+from repro_torch.core.types import (CLASS_PRODUCTION, CPU, MEM,
+                                    NUM_SRC_BUCKETS, ControllerState,
+                                    FlexParams, NodeState)
 from repro_torch.estimators import resolve_estimator
+from repro_torch.guard import watchdog
 
 # Engine resource axes on the shared (N, R) NodeState (see module doc).
 SLOT_AXIS = CPU   # active-request slots, normalized by max_active_per_replica
@@ -65,10 +84,6 @@ KV_AXIS = MEM     # KV tokens, normalized by kv_budget_tokens
 _DRAIN_LOAD = admission.DRAIN_LOAD
 
 ADMISSION_MODES = ("eager", "sequential", "wavefront")
-
-_LATER = {name: "ROADMAP queue 1 item 6 (the engine's faults, migration "
-                "and guard)" for name in ("faults", "migration", "guard")}
-
 
 class AdmissionPolicy(enum.Enum):
     RESERVE = "reserve"   # request-based (baseline) -> registry "least-fit"
@@ -109,6 +124,9 @@ class Request:
     replica: int = -1
     evictions: int = 0
     done: bool = False
+    stall: int = 0             # transfer-latency steps left after a live
+                               # migration (no tokens generated while > 0)
+    migrations: int = 0        # completed live migrations (progress kept)
 
     @property
     def declared_footprint(self) -> int:
@@ -136,9 +154,13 @@ class EngineConfig:
     wavefront_topk: int = 8            # cached candidates per task per sweep
     dedup_buckets: int = 64            # score-bucket dedup width; 0 = off
     wavefront_tie_margin: float = 1e-5  # conflict-check conservatism
-    faults: "object | None" = None     # later slices: must stay None
-    migration: "object | None" = None
-    guard: "object | None" = None
+    faults: "object | None" = None     # repro_torch.faults.FaultConfig:
+                                       # crashes, storms and brownout
+                                       # (``degrade=True``); None = the
+                                       # fault-free engine
+    migration: "object | None" = None  # repro_torch.migration
+                                       # .MigrationConfig; requires faults
+    guard: "object | None" = None      # repro_torch.guard.GuardConfig
 
 
 @dataclasses.dataclass
@@ -154,6 +176,15 @@ class EngineStats:
     decisions: int = 0         # admission decisions evaluated (incl. blocked)
     admit_latency_s: List[float] = dataclasses.field(default_factory=list)
                                # wall seconds per admission pass
+    fault_evictions: int = 0   # requests evicted by replica crashes
+    brownout_steps: int = 0    # steps the brownout controller was engaged
+    brownout_deferred: int = 0  # admission decisions deferred by brownout
+    migrations: int = 0        # live migrations completed (progress kept)
+    migration_failed: int = 0  # migration candidates that fell back to the
+                               # evict-and-restart path
+    guard_trips: int = 0       # breaker transitions into OPEN
+    guard_open_steps: int = 0  # steps spent with the breaker OPEN
+    guard_deferred: int = 0    # admission decisions deferred by the breaker
 
 
 class ServeEngine:
@@ -166,11 +197,6 @@ class ServeEngine:
             raise ValueError(
                 f"unknown admission_mode {cfg.admission_mode!r}; "
                 f"one of {ADMISSION_MODES}")
-        for name, later in _LATER.items():
-            if getattr(cfg, name) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported yet; {later} "
-                    f"brings it")
         self.cfg = cfg
         self.device = torch.device(device)
         self.policy = resolve_engine_policy(cfg.policy)
@@ -187,6 +213,30 @@ class ServeEngine:
         self.step_time_ema = np.ones(cfg.n_replicas)
         self.stats = EngineStats()
         self._ever_violated: set = set()
+        # Fault injection: per-step draws from a dedicated numpy stream
+        # (the reference's), so faults=None consumes no randomness.
+        self._down_until = np.full(cfg.n_replicas, -1, np.int64)
+        self._storm_slowdown = np.ones(cfg.n_replicas)
+        self._storm_until = np.full(cfg.n_replicas, -1, np.int64)
+        if cfg.faults is not None:
+            self._fault_rng = np.random.default_rng((seed + 1) * 0x5EED)
+        # Live migration: an announced crash's down window is
+        # [_down_from, _down_until); residents re-place through the
+        # ``migrate`` policy, keeping their progress.
+        if cfg.migration is not None and cfg.faults is None:
+            raise ValueError(
+                "EngineConfig.migration requires EngineConfig.faults: the "
+                "migration pass is driven by the crash announcements")
+        self._down_from = np.full(cfg.n_replicas, -1, np.int64)
+        self._mig_left = 0
+        if cfg.migration is not None:
+            self._migrate_fn = admission.make_queue_admitter(
+                MigratePolicy(margin_scale=cfg.migration.margin_scale),
+                self.params,
+                batch_mode=cfg.admission_mode == "wavefront",
+                topk=cfg.wavefront_topk,
+                dedup_buckets=cfg.dedup_buckets,
+                tie_margin=cfg.wavefront_tie_margin)
         # Load estimator (same registry as the simulator), refreshed once
         # per round from measured KV footprints; its noise, if any, comes
         # from ``noise.estimate(step, shape)``.
@@ -197,6 +247,14 @@ class ServeEngine:
                                                     device=self.device)
         self._usage_snap = np.zeros(cfg.n_replicas)
         self._declared_snap = np.zeros(cfg.n_replicas)
+        # Estimator-drift guard: the watchdog run eagerly once per step on
+        # the KV-footprint estimate; it draws no randomness.
+        if cfg.guard is not None:
+            self._g_win = watchdog.init_window(cfg.guard.window, 1,
+                                               device=self.device)
+            self._g_state = watchdog.CLOSED
+            self._g_timer = 0
+            self._g_err_q = 0.0
         self._admit_fn = admission.make_queue_admitter(
             self.policy, self.params,
             batch_mode=cfg.admission_mode == "wavefront",
@@ -218,13 +276,95 @@ class ServeEngine:
                          for i in range(self.cfg.n_replicas)], float)
 
     def _straggler_extra(self) -> np.ndarray:
-        """(N,) load inflation, in capacity units, from the step-time EMA."""
+        """(N,) load inflation, in capacity units, from the step-time EMA.
+
+        Down and announced replicas (faults) carry the drain load too, on
+        both the estimate and the declared load, so every policy and mode
+        rejects them as admission and migration targets.
+        """
         cfg = self.cfg
         rel = self.step_time_ema / max(float(self.step_time_ema.mean()), 1e-9)
         extra = cfg.straggler_weight * np.maximum(rel - 1.0, 0.0)
         if cfg.drain_slowdown > 0:
             extra = np.where(rel >= cfg.drain_slowdown, _DRAIN_LOAD, extra)
+        if cfg.faults is not None:
+            extra = np.where(self._down_until > self.stats.steps,
+                             _DRAIN_LOAD, extra)
         return extra.astype(np.float32)
+
+    # ---------------- fault injection (repro_torch.faults) ----------------
+
+    def _inject_faults(self):
+        """Sample this step's replica crashes and straggler storms.
+
+        Every step draws ``random(n)`` for crashes, then ``random(n)`` for
+        storms, whatever the rates.  A crash evicts the replica's
+        residents (with migration on, it is announced ``warn_slots``
+        ahead and evicts what is still resident when it lands).  The
+        burst's down window lasts ``crash_duration``, as the reference's.
+        Stormed replicas report ``storm_slowdown`` times their step time,
+        which the straggler mitigation sees through the EMA.
+        """
+        fc = self.cfg.faults
+        t = self.stats.steps
+        rng = self._fault_rng
+        n = self.cfg.n_replicas
+        up = self._down_until <= t
+        crash = up & (rng.random(n) < fc.crash_rate)
+        if fc.burst_slot >= 0 and t == fc.burst_slot:
+            burst = np.zeros(n, bool)
+            burst[:int(round(fc.burst_frac * n))] = True
+            crash |= up & burst
+        if self.cfg.migration is not None:
+            warn = max(int(fc.warn_slots), 0)
+            self._down_from = np.where(crash, t + warn, self._down_from)
+            self._down_until = np.where(
+                crash, t + warn + max(int(fc.crash_duration), 1),
+                self._down_until)
+            land = (self._down_from == t) & (self._down_until > t)
+            evict_replicas = np.flatnonzero(land)
+        else:
+            self._down_until = np.where(
+                crash, t + max(int(fc.crash_duration), 1), self._down_until)
+            evict_replicas = np.flatnonzero(crash)
+        for i in evict_replicas:
+            victims = self.active[int(i)]
+            self.active[int(i)] = []
+            if self.cfg.migration is not None:
+                # still resident at landing: the move failed into restart
+                self.stats.migration_failed += len(victims)
+            evicted = []
+            for victim in reversed(victims):     # newest admission first
+                victim.evictions += 1
+                victim.replica = -1
+                victim.generated = 0             # restart (no KV migration)
+                victim.done = False
+                self._ever_violated.add(victim.rid)
+                self.stats.fault_evictions += 1
+                if self.on_evict is not None:
+                    self.on_evict(victim)
+                evicted.append(victim)
+            # extendleft reverses: victims return in admission order at
+            # the head of the queue, ahead of fresh arrivals
+            self.queue.extendleft(evicted)
+        calm = self._storm_until <= t
+        storm = calm & (rng.random(n) < fc.storm_rate)
+        self._storm_until = np.where(
+            storm, t + max(int(fc.storm_duration), 1), self._storm_until)
+        self._storm_slowdown = np.where(
+            self._storm_until > t, fc.storm_slowdown, 1.0)
+
+    def _brownout_pressure(self) -> bool:
+        """Windowed cluster QoS (float64, numpy) below the threshold?"""
+        fc = self.cfg.faults
+        if fc is None or not fc.degrade:
+            return False
+        window = self.stats.qos_series[-int(fc.qos_window):]
+        if not window:
+            return False
+        thr = (fc.degrade_threshold if fc.degrade_threshold > 0
+               else self.cfg.qos_target)
+        return float(np.mean(window)) < thr
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -272,9 +412,45 @@ class ServeEngine:
 
     # ---------------- admission (the Flex core) ----------------
 
+    def _guard_observe(self, measured: np.ndarray):
+        """One watchdog step: last round's estimate against this round's
+        measured usage, in KV-capacity units (float64 on the host, then
+        float32), before the estimator refresh."""
+        gcfg = self.cfg.guard
+        kv_cap = float(self.cfg.kv_budget_tokens)
+        prev = self._est_state.est[:, :1].cpu().numpy().astype(float) / kv_cap
+        err = watchdog.drift_sample(
+            self._tensor(prev.astype(np.float32)),
+            self._tensor((measured[:, None] / kv_cap).astype(np.float32)))
+        self._g_win = watchdog.push_errors(self._g_win, err)
+        err_q = watchdog.trip_statistic_eager(self._g_win,
+                                              gcfg.err_quantile)
+        was_open = self._g_state == watchdog.OPEN
+        s, t, _ = watchdog.breaker_step(
+            torch.tensor(self._g_state, dtype=torch.int32,
+                         device=self.device),
+            torch.tensor(self._g_timer, dtype=torch.int32,
+                         device=self.device), err_q, gcfg)
+        self._g_state, self._g_timer = int(s), int(t)
+        self._g_err_q = float(err_q)
+        if self._g_state == watchdog.OPEN and not was_open:
+            self.stats.guard_trips += 1
+        if self._g_state == watchdog.OPEN:
+            self.stats.guard_open_steps += 1
+
+    def _guard_penalty(self) -> float:
+        """The migrate pass's penalty, confidence-scaled while guarded."""
+        pen = float(self.ctrl.penalty)
+        if self.cfg.guard is not None:
+            pen *= float(watchdog.penalty_scale_eager(self._g_err_q,
+                                                      self.cfg.guard))
+        return pen
+
     def refresh_snapshots(self):
         """Advance the estimator on measured usage; refresh round snapshots."""
         measured = self._usage()
+        if self.cfg.guard is not None:
+            self._guard_observe(measured)
         step = self.stats.steps
         self._est_state = self.estimator.refresh(
             self._est_state,
@@ -283,6 +459,13 @@ class ServeEngine:
         self._usage_snap = (self._est_state.est[:, 0].cpu().numpy()
                             .astype(float))
         self._declared_snap = self._declared()
+        if (self.cfg.guard is not None
+                and self._g_state == watchdog.OPEN):
+            # safe mode: the estimate blended toward the declared
+            # footprints, in float64 as the reference's engine blends
+            w = float(self.cfg.guard.open_blend)
+            self._usage_snap = self._usage_snap + w * np.maximum(
+                self._declared_snap - self._usage_snap, 0.0)
 
     def _admit_eager(self, node: NodeState, r: np.ndarray, srcs: np.ndarray,
                      prios: np.ndarray, order: np.ndarray,
@@ -348,6 +531,23 @@ class ServeEngine:
         reqs = list(self.queue)
         r, srcs, prios = self._task_arrays(reqs)
         valid = np.ones(len(reqs), bool)
+        if self._brownout_pressure():
+            # graceful degradation: defer CLASS_BATCH admissions (they
+            # stay queued FIFO-stable), let production through
+            valid &= prios >= CLASS_PRODUCTION
+            self.stats.brownout_steps += 1
+            self.stats.brownout_deferred += int((~valid).sum())
+        if self.cfg.guard is not None and self._g_state != watchdog.CLOSED:
+            # circuit breaker: OPEN defers sub-production admissions;
+            # HALF_OPEN lets a FIFO-head trickle of them through
+            before = valid.copy()
+            allow = prios >= CLASS_PRODUCTION
+            if self._g_state == watchdog.HALF_OPEN:
+                trickle = np.zeros(len(reqs), bool)
+                trickle[:int(self.cfg.guard.probe_reclaim)] = True
+                allow = allow | trickle
+            valid &= allow
+            self.stats.guard_deferred += int((before & ~valid).sum())
         order = np.arange(len(reqs))
         hook = policy_queue_order(self.policy)
         if hook is not None:
@@ -381,6 +581,73 @@ class ServeEngine:
         self.queue = deque(req for req in reqs if req.replica < 0)
         return admitted
 
+    # ---------------- live migration (repro_torch.migration) ----------------
+
+    def _in_flight(self) -> int:
+        """Requests still paying their transfer-latency stall."""
+        return sum(1 for rs in self.active.values()
+                   for r in rs if r.stall > 0)
+
+    def _try_migrate(self, cands: List[Request],
+                     extra_off: "np.ndarray | None" = None) -> List[Request]:
+        """Re-place candidates through one ``migrate``-policy admitter
+        call, bounded by the step's bandwidth and the in-flight pool.
+
+        A moved request keeps ``generated`` and pays ``migrate_cost``
+        stalled steps; its footprints move between the round snapshots.
+        ``extra_off`` adds per-replica offsets to the reserved rows
+        (``admission.mask_unavailable``; the overflow path excludes its
+        source so).  The backend is not told: as in the reference, no
+        hook runs.  Returns the requests that moved.
+        """
+        mig = self.cfg.migration
+        room = int(mig.pool_size) - self._in_flight()
+        take = cands[:max(min(self._mig_left, room,
+                              int(self.cfg.admit_batch)), 0)]
+        if not take:
+            return []
+        r, srcs, prios = self._task_arrays(take)
+        node = self.node_state()
+        if extra_off is not None:
+            node = admission.mask_unavailable(node, self._tensor(extra_off))
+        pen = torch.tensor(self._guard_penalty(), dtype=torch.float32,
+                           device=self.device)
+        _, pl = self._migrate_fn(
+            node, self._tensor(r), self._tensor(srcs), self._tensor(prios),
+            self._tensor(np.ones(len(take), bool)), pen)
+        pl = pl.cpu().numpy()
+        moved = []
+        for k, req in enumerate(take):
+            tgt = int(pl[k])
+            if tgt < 0:
+                continue
+            src_rep = req.replica
+            self.active[src_rep].remove(req)
+            self.active[tgt].append(req)
+            req.replica = tgt
+            req.stall = int(mig.migrate_cost)
+            req.migrations += 1
+            self._usage_snap[src_rep] -= req.current_footprint
+            self._usage_snap[tgt] += req.current_footprint
+            self._declared_snap[src_rep] -= req.declared_footprint
+            self._declared_snap[tgt] += req.declared_footprint
+            self.stats.migrations += 1
+            self._mig_left -= 1
+            moved.append(req)
+        return moved
+
+    def _migrate_draining(self):
+        """Drain pass: move the residents of announced-crash replicas,
+        oldest first (they carry the drain load already, so they are no
+        targets)."""
+        t = self.stats.steps
+        draining = np.flatnonzero((self._down_from > t)
+                                  & (self._down_until > t))
+        cands = [r for i in draining
+                 for r in self.active[int(i)] if r.stall == 0]
+        if cands:
+            self._try_migrate(cands)
+
     # ---------------- decode + overflow handling ----------------
 
     def _stub_decode(self, replica: int, reqs: List[Request]) -> float:
@@ -392,8 +659,13 @@ class ServeEngine:
         if not reqs:
             return
         dt = self.decode_fn(i, reqs)
+        if self.cfg.faults is not None:
+            dt *= float(self._storm_slowdown[i])   # a straggler storm
         self.step_time_ema[i] = 0.8 * self.step_time_ema[i] + 0.2 * dt
         for r in reqs:
+            if r.stall > 0:
+                r.stall -= 1          # transfer latency: no token this step
+                continue
             if not r.done:
                 r.generated += 1
                 self.stats.tokens_generated += 1
@@ -402,6 +674,22 @@ class ServeEngine:
         # overflow: real usage exceeded the budget -> evict newest first
         usage = sum(r.current_footprint for r in reqs)
         cap = self.cfg.kv_budget_tokens
+        if usage > cap and self.cfg.migration is not None:
+            # migrate-then-shed: move the newest admissions off first;
+            # only what cannot move is evicted below
+            cands, freed = [], 0.0
+            for r2 in reversed(reqs):
+                if r2.stall > 0:
+                    continue
+                cands.append(r2)
+                freed += r2.current_footprint
+                if usage - freed <= cap:
+                    break
+            off = np.zeros(self.cfg.n_replicas, np.float32)
+            off[i] = _DRAIN_LOAD           # the source is never a target
+            moved = self._try_migrate(cands, extra_off=off)
+            self.stats.migration_failed += len(cands) - len(moved)
+            usage = sum(r.current_footprint for r in reqs)
         evicted = []
         while usage > cap and reqs:
             victim = reqs.pop()           # LIFO: newest admission pays
@@ -430,7 +718,12 @@ class ServeEngine:
 
     def step(self):
         cfg = self.cfg
+        if cfg.faults is not None:
+            self._inject_faults()
         self.refresh_snapshots()
+        if cfg.migration is not None:
+            self._mig_left = int(cfg.migration.bandwidth)
+            self._migrate_draining()
         self.admit_pending()
 
         for i in range(cfg.n_replicas):

@@ -1,6 +1,6 @@
 """The estimator-drift watchdog and its breaker: the port against the JAX
 reference (``tests/test_guard.py``'s simulator cases; the engine's guard
-is a later slice).
+is held in ``tests/test_torch_engine_faults.py``).
 
 The watchdog's functions are held bit for bit against the jitted
 reference: the drift sample adds over the nodes in XLA's order

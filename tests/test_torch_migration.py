@@ -1,6 +1,6 @@
 """Live migration and proactive drain: the port against the JAX reference
 (``tests/test_migration.py``'s simulator cases; the engine's migration is
-a later slice).
+held in ``tests/test_torch_engine_faults.py``).
 
 The reference's small cases run on noise-free tasks, so the port is held
 to the values their assertions pin.  The ``migrate`` policy's cap is held

@@ -280,10 +280,3 @@ def test_policy_resolution_and_errors():
     with pytest.raises(ValueError, match="admission_mode"):
         ServeEngine(EngineConfig(n_replicas=2, admission_mode="batchy"),
                     device="cpu")
-
-
-@pytest.mark.parametrize("knob", ["faults", "migration", "guard"])
-def test_later_slices_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(EngineConfig(n_replicas=2, **{knob: object()}),
-                    device="cpu")

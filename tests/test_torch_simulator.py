@@ -199,8 +199,9 @@ def test_experiment_seeds_and_sweep_axes(trace):
 ])
 def test_later_slices_raise(trace, field, value, slice_name):
     """Every SimConfig field runs in the simulator now (migration without
-    faults raises, as in the reference); the serving engine's faults,
-    migration and guard still raise, ROADMAP queue 1 item 6."""
+    faults raises, as in the reference); the serving engine builds with
+    its faults and guard, and its migration without faults raises there
+    too."""
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
     _, ts = trace
@@ -211,9 +212,12 @@ def test_later_slices_raise(trace, field, value, slice_name):
     else:
         res = run(ts, cfg, "flex-f", device="cpu")
         assert res.placement.shape == (ts.num_tasks,)
-    if field == slice_name:
-        with pytest.raises(NotImplementedError, match="item 6"):
+    if field == slice_name == "migration":
+        with pytest.raises(ValueError, match="migration requires"):
             ServeEngine(EngineConfig(**{field: value}), device="cpu")
+    elif field == slice_name:
+        eng = ServeEngine(EngineConfig(**{field: value}), device="cpu")
+        assert getattr(eng.cfg, field) == value
 
 
 def test_wavefront_mode_runs(trace):
