@@ -109,14 +109,19 @@ width, after phase a and after phase f:
      shapes of tests/test_kernels_flash.py, stablelm-3b's prefill
      shapes (B = 1, H = KV = 32, hd = 80, causal, S up to 4096) and
      mixtral-8x7b's (H = 32 over KV = 8, hd = 128, window 4096, S up to
-     5000), and on
+     5000), whisper-medium's (H = KV = 16, hd = 64, unmasked: the encoder
+     at S = 1500, B = 1 and 8, and the decoder's cross attention, Sq in
+     {1, 37, 447} against Sk = 1500 frames, B = 8) and
+     llava-next-mistral-7b's (H = 32 over KV = 8, hd = 128, causal, S in
+     {577, 1576, 2048}), and on
      one full-width attention layer's (B, S, H, hd) projections through
      ``chunked_attention`` as the serving path calls it, in f32 (max abs
      error within 2e-5) and bf16 (2e-2, and each element within one bf16
      rounding step of the plain value); times at S = 2048 and 4096 (eager,
      and replayed from a CUDA graph) beside the earlier design's, the
      bound, the plain version and ``scaled_dot_product_attention`` (timed
-     only, as a yardstick).
+     only, as a yardstick), and the same at whisper's cross shape (B = 8,
+     Sq = 447, Sk = 1500) and encoder shape (B = 8, S = 1500).
   h. the slice end to end: ``RealModelBackend`` with the full config in
      bf16 (random weights), 2 replicas x 8 slots, flex in wavefront mode
      and then reserve over 32 requests with 512-2048-token prompts and a
@@ -177,6 +182,29 @@ The serving engine's faults and the MoE family, after phase m:
      prefill time at 2047 (odd: one-token groups) and 2048 tokens, peak
      memory; then a 2-layer full-width prefill through the kernel against
      the plain attention, last logits within phase i's bf16 tolerance.
+
+The encoder-decoder and VLM families, at model level (the serving
+backend, as the reference's, prefills from tokens alone and cannot feed
+them frames or patches), after phase s:
+
+  t. whisper-medium at its published widths (24 encoder and 24 decoder
+     layers, d_model 1024, 16 heads of 64, d_ff 4096, 1500 frames, vocab
+     51,865), bf16, random weights drawn on the card: a prefill of
+     ``synthetic_batch(cfg, 8, 447, 0, 0)`` (447 tokens and one decode
+     step fill whisper's 448-token context) and 32 greedy decode steps
+     (72 flash launches per prefill: encoder self, decoder self and
+     cross attention in each layer); prefill(447) plus the first decode
+     step against prefill(448), the cross K/V from the prefill; a
+     2-encoder/2-decoder-layer full-width prefill through the kernel
+     against the plain attention; the smoke config in f32 on the card
+     against the CPU port; prefill ms, ms per decode step, decode
+     tokens/s and peak memory.
+  u. llava-next-mistral-7b at its published widths (32 layers, d_model
+     4096, 32 heads of 128 over 8 KV heads, d_ff 14336, vocab 32,000,
+     576 patches), bf16: prefills of ``synthetic_batch(cfg, 4, 1472, 0,
+     0)`` (S = 2048 with the patches) and of a ragged batch of 1000
+     tokens (S = 1576), 32 decode steps after the first (32 flash
+     launches per prefill), and phase t's checks and numbers.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
@@ -1718,6 +1746,18 @@ FLASH_PREFILL_S = (1, 37, 512, 1000, 2048, 4096)
 # a window of 4096 (which a prompt past 4096 tokens reaches).
 FLASH_MOE_S = (37, 1329, 2048, 5000)
 FLASH_TIMED_S = (2048, 4096)
+# Sq != Sk and the unmasked encoder, at the shapes phases t and u give the
+# kernel: (B, H, KV, Sq, Sk, hd, causal).  whisper-medium's encoder (S =
+# 1500 frames) and its decoder's cross attention (Sq = the prompt, Sk =
+# 1500), H = KV = 16, hd = 64, unmasked; llava-next-mistral-7b's causal
+# prefill over 576 patches plus the prompt, H = 32 over KV = 8, hd = 128.
+FLASH_WHISPER = ([(b, 16, 16, 1500, 1500, 64, False) for b in (1, 8)]
+                 + [(8, 16, 16, sq, 1500, 64, False) for sq in (1, 37, 447)])
+FLASH_LLAVA = [(1, 32, 8, 577, 577, 128, True)] + [
+    (4, 32, 8, s, s, 128, True) for s in (1576, 2048)]
+# Timed, beside the bound and SDPA: the cross and encoder shapes of phase t.
+FLASH_TIMED_CROSS = ((8, 16, 16, 447, 1500, 64, False),
+                     (8, 16, 16, 1500, 1500, 64, False))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # The earlier (mma.sync) design's times at the timed shapes, from PERF.md's
 # kernel table: its run P2 at S = 2048, its run H at S = 4096 (NVIDIA H100
@@ -1735,12 +1775,17 @@ BF16_F32_ERR = 1e-4
 BF16_FLOPS = 989e12
 
 
-def _flash_bound(b: int, h: int, kv: int, s: int, hd: int, elt: int):
-    """(bound ms, what bounds it) of one causal call: 4 hd flops for each
-    of the S (S + 1) / 2 unmasked (query, key) pairs per head over the bf16
-    tensor-core peak; q, k, v read and o written once over 3.35 TB/s."""
-    flops = 4 * hd * h * b * s * (s + 1) // 2
-    n_bytes = (2 * b * h * s * hd + 2 * b * kv * s * hd) * elt
+def _flash_bound(b: int, h: int, kv: int, s: int, hd: int, elt: int,
+                 sk: int = 0, causal: bool = True):
+    """(bound ms, what bounds it) of one call of Sq = ``s`` queries over
+    ``sk`` keys (default ``s``): 4 hd flops for each unmasked (query, key)
+    pair per head (S (S + 1) / 2 under the causal mask, Sq Sk without)
+    over the bf16 tensor-core peak; q, k, v read and o written once over
+    3.35 TB/s."""
+    sk = sk or s
+    pairs = (sum(min(i + 1, sk) for i in range(s)) if causal else s * sk)
+    flops = 4 * hd * h * b * pairs
+    n_bytes = (2 * b * h * s * hd + 2 * b * kv * sk * hd) * elt
     by_ops = flops / BF16_FLOPS * 1e3
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
@@ -1785,16 +1830,22 @@ def flash_vs_plain(dev) -> dict:
     cases = (list(FLASH_TEST_CASES)
              + [(1, 32, 32, s, 80, True, 0) for s in FLASH_PREFILL_S]
              + [(1, 32, 8, s, 128, True, 4096) for s in FLASH_MOE_S])
+    cases = ([(b, h, kv, s, s, hd, causal, window)
+              for b, h, kv, s, hd, causal, window in cases]
+             + [(*c, 0) for c in FLASH_WHISPER + FLASH_LLAVA])
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for b, h, kv, s, hd, causal, window in cases:
+    for b, h, kv, sq, sk, hd, causal, window in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((b, n, s, hd), generator=gen, device=dev
-                                   ).to(dtype) for n in (h, kv, kv))
+                                   ).to(dtype)
+                       for n, s in ((h, sq), (kv, sk), (kv, sk)))
             got = flash_attention_bhsd(q, k, v, causal=causal, window=window)
             want = attention_ref(q, k, v, causal=causal, window=window)
-            _flash_check(f"B={b} H={h} KV={kv} S={s} hd={hd} causal="
+            shape = f"S={sq}" if sq == sk else f"Sq={sq} Sk={sk}"
+            _flash_check(f"B={b} H={h} KV={kv} {shape} hd={hd} causal="
                          f"{causal} window={window} {str(dtype)[6:]}",
                          got, want, worst)
+            del q, k, v, got, want
     # As the serving path calls it: q, k, v from one full-width attention
     # layer's projections and partial RoPE, (B, S, H, hd) tensors that
     # chunked_attention hands on as transposed views, with a strided
@@ -1841,6 +1892,26 @@ def flash_vs_plain(dev) -> dict:
             f"scaled_dot_product_attention {lib_ms:.4f} ms (graph replay "
             f"{lib_graph_ms:.4f} ms); bound {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / ms:.4f} of it")
+    for b, h, kv, sq, sk, hd, causal in FLASH_TIMED_CROSS:
+        q = torch.randn((b, h, sq, hd), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn((b, kv, sk, hd), generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        run = lambda: flash_attention_bhsd(q, k, v, causal=causal)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=causal)
+        t_ms, t_graph = _event_ms(run, reps=10), _median_ms(run, 5, 20)
+        t_plain = _event_ms(lambda: attention_ref(q, k, v, causal=causal),
+                            reps=5)
+        t_lib, t_lib_graph = _event_ms(lib, reps=10), _median_ms(lib, 5, 20)
+        b_ms, b_by = _flash_bound(b, h, kv, sq, hd, 2, sk, causal)
+        log(f"[flash] B={b} H={h} hd={hd} Sq={sq} Sk={sk} causal={causal} "
+            f"bf16: kernel {t_ms:.4f} ms (graph replay {t_graph:.4f} ms), "
+            f"plain {t_plain:.4f} ms, scaled_dot_product_attention "
+            f"{t_lib:.4f} ms (graph replay {t_lib_graph:.4f} ms); bound "
+            f"{b_ms:.4f} ms ({b_by}), {b_ms / t_ms:.4f} of it eager, "
+            f"{b_ms / t_graph:.4f} replayed")
+        del q, k, v
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed[FLASH_TIMED_S[0]]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/csrc/"
@@ -2167,8 +2238,11 @@ def _reset_kernel_launches() -> None:
 def _per_prefill(cfg) -> dict:
     """The model kernels' launches in one prefill of ``cfg``."""
     from repro_torch.models.model import n_shared_invocations
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    if cfg.family == "encdec":   # encoder self, decoder self and cross
+        return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                "ssd_scan": 0}
     return {"flash_attention": n_shared_invocations(cfg),
             "ssd_scan": cfg.n_layers}
 
@@ -2392,23 +2466,29 @@ def _decode_cache(cfg, prefill_cache, batch: int, max_seq: int, dev):
 
 
 def _smoke_against_cpu(dev, arch: str) -> None:
-    """The smoke config in f32: a 45-token prefill and 6 decode steps from
-    its cache, on the card against the CPU port."""
+    """The smoke config in f32: a 45-token prefill (with the encdec's
+    frames or the vlm's patches from ``synthetic_batch``) and 6 decode
+    steps from its cache, on the card against the CPU port."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
+    from repro_torch.train import synthetic_batch
 
     small = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = build_model(small)
     params = model.init(torch.Generator().manual_seed(2))
     toks = torch.randint(0, small.vocab_size, (2, 51),
                          generator=torch.Generator().manual_seed(3))
+    extra = {k: v for k, v in synthetic_batch(small, 2, 45, 3, 0,
+                                              device="cpu").items()
+             if k in ("frames", "patches")}
     logits = []
     for device in (dev, torch.device("cpu")):
         p = params.to(device)
-        lp, c = model.prefill(p, {"tokens": toks[:, :45].to(device)})
-        cache = _decode_cache(small, c, 2, 56, device)
+        batch = {k: v.to(device) for k, v in extra.items()}
+        lp, c = model.prefill(p, dict(batch, tokens=toks[:, :45].to(device)))
+        cache = _decode_cache(small, c, 2, int(c["len"]) + 11, device)
         steps = [lp]
         for t in range(45, 51):
             ld, cache = model.decode(p, cache, toks[:, t:t + 1].to(device))
@@ -2433,8 +2513,6 @@ def profile_serving(dev, cfg=None) -> None:
     decode step of a full replica (8 slots, max_seq 2560) spend their time:
     the host clock untraced, then the device's kernel time under
     torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import build_model, init_cache
 
     cfg = cfg or _full_config()
@@ -2449,43 +2527,50 @@ def profile_serving(dev, cfg=None) -> None:
                        device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (SERVE["slots"], 1),
                            generator=gen, device=dev)
-    for name, fn in (
-            (f"prefill of {s} tokens",
-             lambda: model.prefill(params, {"tokens": prompt})),
-            (f"decode step of {SERVE['slots']} slots at position {s - 1}",
-             lambda: model.decode(params, cache, tokens))):
+    _profile(cfg, f"prefill of {s} tokens",
+             lambda: model.prefill(params, {"tokens": prompt}))
+    _profile(cfg, f"decode step of {SERVE['slots']} slots at position "
+                  f"{s - 1}", lambda: model.decode(params, cache, tokens))
+
+
+def _profile(cfg, name: str, fn) -> None:
+    """One call of ``fn`` after a warm-up: the host clock untraced, then
+    the device's kernel time under torch.profiler, its idle share, the
+    top kernels and the port kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        if busy_ms == 0:
-            log(f"[sprofile] {name}: {wall_ms:.2f} ms untraced; device time "
-                f"not visible to the profiler")
-            continue
-        log(f"[sprofile] {cfg.name} {name}: {wall_ms:.2f} ms untraced; "
-            f"device busy {busy_ms:.2f} ms in "
-            f"{sum(e.count for e in kernels)} kernels, idle share "
-            f"{1 - busy_ms / wall_ms:.4f}")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-            log(f"[sprofile]   {e.key[:60]}: {e.count} calls, "
-                f"{e.self_device_time_total / 1e3:.3f} ms")
-        # The port's own kernels: flash attention, and the SSD scan's three
-        # passes together.
-        for port, names in PORT_KERNELS.items():
-            mine = [e for e in kernels if any(n in e.key for n in names)]
-            if mine:
-                ms = sum(e.self_device_time_total for e in mine) / 1e3
-                log(f"[sprofile]   {port} (port): {sum(e.count for e in mine)}"
-                    f" kernels, {ms:.3f} ms, {ms / busy_ms:.4f} of the "
-                    f"device time")
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        log(f"[sprofile] {name}: {wall_ms:.2f} ms untraced; device time "
+            f"not visible to the profiler")
+        return
+    log(f"[sprofile] {cfg.name} {name}: {wall_ms:.2f} ms untraced; "
+        f"device busy {busy_ms:.2f} ms in "
+        f"{sum(e.count for e in kernels)} kernels, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"[sprofile]   {e.key[:60]}: {e.count} calls, "
+            f"{e.self_device_time_total / 1e3:.3f} ms")
+    # The port's own kernels: flash attention, and the SSD scan's three
+    # passes together.
+    for port, names in PORT_KERNELS.items():
+        mine = [e for e in kernels if any(n in e.key for n in names)]
+        if mine:
+            ms = sum(e.self_device_time_total for e in mine) / 1e3
+            log(f"[sprofile]   {port} (port): {sum(e.count for e in mine)}"
+                f" kernels, {ms:.3f} ms, {ms / busy_ms:.4f} of the "
+                f"device time")
 
 
 # ---------------------------------------------------------------------------
@@ -2750,45 +2835,59 @@ def _moe_probe(dev):
     return probe
 
 
-def moe_against_plain_attention(dev) -> None:
-    """A 2-layer full-width mixtral prefill through the flash kernel,
-    against the same prefill with the plain attention: last logits within
-    phase i's bf16 tolerance."""
+def _against_plain_attention(dev, cfg, make_batch, tag: str,
+                             what: str) -> None:
+    """A full-width prefill of ``cfg`` (random weights drawn first from a
+    generator seeded 4, then ``make_batch(generator)``) through the flash
+    kernel, against the same prefill with the plain attention: last
+    logits within phase i's bf16 tolerance, and the kernel launched as
+    often as ``_per_prefill`` says."""
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
 
-    cfg = _moe_config(MOE_CHECK_LAYERS)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     params = model.init(gen)
-    toks = torch.randint(0, cfg.vocab_size, (1, MOE_CHECK_S), generator=gen,
-                         device=dev)
+    batch = make_batch(gen)
     fa = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
     before = fa.LAUNCHES
-    got, _ = model.prefill(params, {"tokens": toks})
+    got, _ = model.prefill(params, batch)
     launched = fa.LAUNCHES - before
     chunked = L.chunked_attention
     L.chunked_attention = lambda q, k, v, causal=True, window=0: \
         L.naive_attention(q, k, v, causal=causal, window=window)
     try:
-        want, _ = model.prefill(params, {"tokens": toks})
+        want, _ = model.prefill(params, batch)
     finally:
         L.chunked_attention = chunked
     real = slice(0, cfg.vocab_size)
     got, want = got[:, real].float(), want[:, real].float()
     err = float((got - want).abs().max())
-    log(f"[serve moe] {MOE_CHECK_LAYERS}-layer full-width prefill of "
-        f"{MOE_CHECK_S} tokens, flash kernel ({launched} launches) against "
-        f"the plain attention: last logits max abs difference {err:.4f} "
+    expected = _per_prefill(cfg)["flash_attention"]
+    log(f"{tag} {what}, flash kernel ({launched} launches) against the "
+        f"plain attention: last logits max abs difference {err:.4f} "
         f"(tolerance {PREFILL_DECODE_TOL}; max |logit| "
         f"{float(want.abs().max()):.3f}); argmax equal: "
-        f"{bool(got.argmax() == want.argmax())}")
+        f"{bool((got.argmax(-1) == want.argmax(-1)).all())}")
     if not (torch.isfinite(got).all() and err <= PREFILL_DECODE_TOL
-            and launched == MOE_CHECK_LAYERS):
-        raise AssertionError(f"mixtral: the kernel path and the plain "
+            and launched == expected):
+        raise AssertionError(f"{cfg.name}: the kernel path ({launched} "
+                             f"launches, {expected} expected) and the plain "
                              f"attention disagree by {err}")
+
+
+def moe_against_plain_attention(dev) -> None:
+    """A 2-layer full-width mixtral prefill through the flash kernel,
+    against the same prefill with the plain attention."""
+    cfg = _moe_config(MOE_CHECK_LAYERS)
+    _against_plain_attention(
+        dev, cfg, lambda gen: {"tokens": torch.randint(
+            0, cfg.vocab_size, (1, MOE_CHECK_S), generator=gen,
+            device=dev)},
+        "[serve moe]", f"{MOE_CHECK_LAYERS}-layer full-width prefill of "
+                       f"{MOE_CHECK_S} tokens")
 
 
 def serve_mixtral(dev, ref_runs) -> dict:
@@ -2808,6 +2907,172 @@ def serve_mixtral(dev, ref_runs) -> dict:
     moe_against_plain_attention(dev)
     return {"flash_attention": sum(r["launches"]["flash_attention"]
                                    for r in runs.values())}
+
+
+# ---------------------------------------------------------------------------
+# phases t and u: whisper-medium and llava-next-mistral-7b at full width
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-medium"
+# whisper's decoder context is 448 tokens: a 447-token prompt and one decode
+# step fill it.
+ENCDEC_BATCH, ENCDEC_T = 8, (447,)
+VLM_ARCH = "llava-next-mistral-7b"
+# 576 patches in front: S = 2048, and a ragged batch at S = 1576.
+VLM_BATCH, VLM_T = 4, (1472, 1000)
+MODEL_DECODE_STEPS = 32
+MODEL_CHECK_LAYERS = 2
+
+
+def _model_inputs(cfg, batch: int, seq: int, index: int, dev) -> dict:
+    """``synthetic_batch``'s inputs (seed 0) without the labels."""
+    from repro_torch.train import synthetic_batch
+
+    out = synthetic_batch(cfg, batch, seq, 0, index, device=dev)
+    del out["labels"]
+    return out
+
+
+def _model_phase(dev, arch: str, batch: int, seqs, tag: str) -> int:
+    """``arch`` at its published widths in bf16, random weights drawn on
+    the card (seed 0), fed by ``synthetic_batch``: a prefill of each prompt
+    length in ``seqs`` (index i for the i-th), the first followed by
+    MODEL_DECODE_STEPS greedy decode steps.  Checks the flash launches of
+    each prefill against ``_per_prefill``; prefill(T) plus the first decode
+    step against prefill(T + 1) (the encdec's cross K/V from the prefill);
+    a MODEL_CHECK_LAYERS-layer full-width prefill through the kernel
+    against the plain attention; the smoke config in f32 on the card
+    against the CPU port.  Logs prefill ms, ms per decode step, decode
+    tokens/s and peak memory.  Returns the flash launches of the prefills
+    and decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"{tag} {cfg.name} ({cfg.family}) at full width: {cfg.n_layers} "
+        f"layers" + (f" and {cfg.n_enc_layers} encoder layers over "
+                     f"{cfg.enc_seq} frames" if cfg.family == "encdec"
+                     else "")
+        + (f", {cfg.n_patches} patches" if cfg.family == "vlm" else "")
+        + f", d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim_} over {cfg.n_kv_heads} KV heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_padded}; {cfg.dtype}, "
+          f"{n_bytes / 1e9:.2f} GB of random weights (seed 0)")
+    inputs = [_model_inputs(cfg, batch, s, i, dev)
+              for i, s in enumerate(seqs)]
+    want = _per_prefill(cfg)["flash_attention"]
+
+    # The main path: counts set to 0 just before, read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_launches()
+    per_prefill, prefill_s = [], []
+    for i, b in enumerate(inputs):
+        before = _kernel_launches()["flash_attention"]
+        t0 = time.perf_counter()
+        logits, c = model.prefill(params, b)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        per_prefill.append(_kernel_launches()["flash_attention"] - before)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{cfg.name}: prefill logits not finite")
+        if i:
+            del c
+            continue
+        S = int(c["len"])
+        cache = _decode_cache(cfg, c, batch, S + MODEL_DECODE_STEPS, dev)
+        del c
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        for step in range(MODEL_DECODE_STEPS):
+            ld, cache = model.decode(params, cache, tok)
+            if step == 0:
+                first = (tok, ld)
+            tok = ld.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        if not torch.isfinite(ld.float()).all():
+            raise AssertionError(f"{cfg.name}: decode logits not finite")
+    launches = _kernel_launches()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lens = [b["tokens"].shape[1] for b in inputs]
+    if cfg.family == "vlm":
+        lens = [n + cfg.n_patches for n in lens]
+    log(f"{tag} flash launches per prefill {per_prefill} ({want} expected: "
+        + ("encoder self, decoder self and cross attention per layer"
+           if cfg.family == "encdec" else "one per layer")
+        + f"), {launches} in all")
+    if per_prefill != [want] * len(inputs) or launches != want * len(inputs):
+        raise AssertionError(f"{cfg.name}: flash launched {per_prefill} "
+                             f"times per prefill, {want} expected")
+    ev_ms = [_event_ms(lambda b=b: model.prefill(params, b), reps=3)
+             for b in inputs]
+    for s, wall, ev in zip(lens, prefill_s, ev_ms):
+        log(f"{tag} prefill of B={batch} x S={s}: {ev:.2f} ms (CUDA events, "
+            f"median of 3 after a warm-up), the first {wall * 1e3:.2f} ms "
+            f"(host clock, cold)")
+    log(f"{tag} {MODEL_DECODE_STEPS} greedy decode steps of B={batch} from "
+        f"S={lens[0]}: {decode_s * 1e3 / MODEL_DECODE_STEPS:.2f} ms a step, "
+        f"{batch * MODEL_DECODE_STEPS / decode_s:.1f} decode tokens/s; peak "
+        f"memory {peak:.2f} GiB")
+    _profile(cfg, f"prefill of B={batch} x S={lens[0]}",
+             lambda: model.prefill(params, inputs[0]))
+    # decode writes at the cache's last position, clamped, from here on
+    _profile(cfg, f"decode step of B={batch} at S="
+                  f"{lens[0] + MODEL_DECODE_STEPS}",
+             lambda: model.decode(params, cache, tok))
+    del cache
+
+    # prefill(T) and one decode step against prefill(T + 1)
+    tok, got = first
+    longer = dict(inputs[0], tokens=torch.cat([inputs[0]["tokens"], tok], 1))
+    want_l, _ = model.prefill(params, longer)
+    real = slice(0, cfg.vocab_size)
+    got, want_l = got[:, real].float(), want_l[:, real].float()
+    err = float((got - want_l).abs().max())
+    log(f"{tag} prefill(S={lens[0]}) + one decode step against "
+        f"prefill(S={lens[0] + 1}): last logits max abs difference "
+        f"{err:.4f} (tolerance {PREFILL_DECODE_TOL}; max |logit| "
+        f"{float(want_l.abs().max()):.3f}); argmax equal in "
+        f"{int((got.argmax(-1) == want_l.argmax(-1)).sum())} of {batch} rows")
+    if not (torch.isfinite(got).all() and err <= PREFILL_DECODE_TOL):
+        raise AssertionError(f"{cfg.name}: prefill and decode disagree by "
+                             f"{err}")
+    del params, inputs, first, got, want_l, longer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=MODEL_CHECK_LAYERS,
+                                n_enc_layers=min(cfg.n_enc_layers,
+                                                 MODEL_CHECK_LAYERS))
+    _against_plain_attention(
+        dev, small, lambda gen: _model_inputs(small, batch, seqs[0], 0, dev),
+        tag, f"{MODEL_CHECK_LAYERS}-layer full-width prefill of B={batch} x "
+             f"S={lens[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _smoke_against_cpu(dev, arch)
+    return launches
+
+
+def encdec_end_to_end(dev) -> int:
+    """Phase t: whisper-medium; returns the flash launches."""
+    return _model_phase(dev, ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_T,
+                        "[encdec]")
+
+
+def vlm_end_to_end(dev) -> int:
+    """Phase u: llava-next-mistral-7b; returns the flash launches."""
+    return _model_phase(dev, VLM_ARCH, VLM_BATCH, VLM_T, "[vlm]")
 
 
 def main() -> int:
@@ -2894,6 +3159,11 @@ def main() -> int:
         f"{moe['flash_attention']}")
     launches["flash_attention"] += (faulted["flash_attention"]
                                     + moe["flash_attention"])
+    encdec = timed("t", encdec_end_to_end)
+    vlm = timed("u", vlm_end_to_end)
+    log(f"[launches] phase t: flash_attention {encdec}; phase u: "
+        f"flash_attention {vlm}")
+    launches["flash_attention"] += encdec + vlm
     launches["flex_score_batch_topk"] += faulted["flex_score_batch_topk"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

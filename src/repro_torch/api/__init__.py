@@ -37,6 +37,8 @@ from repro_torch.api.policies import (  # noqa: F401
     AimdPenaltyController,
     BestFitUsagePolicy,
     BrownoutPolicy,
+    CurrentUsageEstimator,
+    EwmaEstimator,
     FlexFifoPolicy,
     FlexLrfPolicy,
     LeastFitPolicy,

@@ -3,7 +3,8 @@
 The paper's four policies (LeastFit, Oversub, FlexF, FlexL), five
 registry extensions (best-fit-usage, flex-priority, flex-brownout, and
 the simulator's reclaim and migrate passes), with the reference's
-arithmetic, plus the AIMD penalty controller.
+arithmetic, the legacy stateless estimators and the AIMD penalty
+controller.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.api import admission
 from repro_torch.api.admission import PolicyContext, TaskView
 from repro_torch.api.registry import register_policy
+from repro_torch.core import estimator as _est
 from repro_torch.core import penalty as _penalty
 from repro_torch.core.numerics import fma
 from repro_torch.core.types import (
@@ -278,6 +280,45 @@ class BrownoutPolicy(FlexFifoPolicy):
     def _kernel_scalars(self, ctx: PolicyContext, task: TaskView):
         penalty, _, w_load, w_src = super()._kernel_scalars(ctx, task)
         return penalty, self._cap(ctx, task), w_load, w_src
+
+
+# ---------------------------------------------------------------------------
+# Legacy stateless estimators (wrappers over repro_torch.core.estimator)
+#
+# They predate the estimators subsystem and keep the legacy
+# ``refresh(prev_est, node_usage, draw) -> est`` hook, where ``draw(shape)``
+# returns the slot's standard normals from the run's noise source; the
+# simulator adapts them by ``estimators.base.StatelessAdapter``.  New code
+# registers stateful estimators with ``register_estimator``.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CurrentUsageEstimator:
+    """The paper's estimator: L-hat = measured current usage, with
+    optional multiplicative measurement noise."""
+
+    noise_std: float = 0.0
+
+    def refresh(self, prev_est: torch.Tensor, node_usage: torch.Tensor,
+                draw) -> torch.Tensor:
+        return _est.current_usage(node_usage, draw, self.noise_std)
+
+
+@dataclasses.dataclass(frozen=True)
+class EwmaEstimator:
+    """EWMA smoothing (the related work's standard choice)."""
+
+    decay: float = 0.7
+
+    def refresh(self, prev_est: torch.Tensor, node_usage: torch.Tensor,
+                draw) -> torch.Tensor:
+        return _est.ewma(prev_est, node_usage, self.decay)
+
+
+ESTIMATORS = {
+    "current": CurrentUsageEstimator,
+    "ewma": EwmaEstimator,
+}
 
 
 def resolve_estimator(est, noise_std: float = 0.0):

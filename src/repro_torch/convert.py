@@ -99,11 +99,12 @@ def _leaf(a, device) -> torch.Tensor:
 
 def model_params_from_numpy(cfg, tree: Mapping[str, Any], *,
                             device="cuda"):
-    """The reference's ``model.init`` tree (numpy leaves, ``layers``
-    stacked on a leading L axis, the hybrid's ``shared_block`` not; a moe
-    layer's ``moe`` group with its router, expert weights and nested
-    ``shared`` MLP) -> the port's :class:`LM`."""
-    from repro_torch.models.model import LM, require_ported
+    """The reference's ``model.init`` tree (numpy leaves, ``layers`` and
+    the encdec's ``enc_layers`` stacked on a leading L axis, the hybrid's
+    ``shared_block`` not; a moe layer's ``moe`` group with its router,
+    expert weights and nested ``shared`` MLP) -> the port's :class:`LM`,
+    or :class:`EncDec` for the encdec family."""
+    from repro_torch.models.model import LM, EncDec, require_ported
 
     require_ported(cfg)
 
@@ -112,11 +113,19 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], *,
                        else _leaf(leaf if i is None else leaf[i], device))
                 for name, leaf in t.items()}
 
-    layers = [groups(tree["layers"], i) for i in range(cfg.n_layers)]
+    def stack(name, n):
+        return [groups(tree[name], i) for i in range(n)]
+
+    if cfg.family == "encdec":
+        return EncDec(*(_leaf(tree[k], device) for k in
+                        ("tok_emb", "dec_pos_emb", "enc_pos_emb")),
+                      stack("enc_layers", cfg.n_enc_layers),
+                      groups(tree["enc_ln_f"]),
+                      stack("layers", cfg.n_layers), groups(tree["ln_f"]))
     lm_head = tree.get("lm_head")
     shared = tree.get("shared_block")
-    return LM(_leaf(tree["tok_emb"], device), layers,
-              {k: _leaf(v, device) for k, v in tree["ln_f"].items()},
+    return LM(_leaf(tree["tok_emb"], device), stack("layers", cfg.n_layers),
+              groups(tree["ln_f"]),
               None if lm_head is None else _leaf(lm_head, device),
               None if shared is None else groups(shared))
 

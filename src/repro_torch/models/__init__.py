@@ -1,6 +1,8 @@
-"""The model substrate (dense, moe, ssm and hybrid families) on PyTorch."""
+"""The model substrate (dense, moe, ssm, hybrid, encdec and vlm
+families) on PyTorch."""
 from repro_torch.models.model import (  # noqa: F401
     LM,
+    EncDec,
     Model,
     build_model,
     cache_specs,

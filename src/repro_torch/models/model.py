@@ -1,9 +1,10 @@
-"""Model builder (port of ``repro.models.model``): the dense, moe, ssm
-and hybrid families.
+"""The model families (port of ``repro.models.model``): dense, moe, ssm,
+hybrid, encdec and vlm.
 
 ``build_model(cfg)`` returns a :class:`Model` with
 
-  init(generator)                 -> params (an :class:`LM` module)
+  init(generator)                 -> params (an :class:`LM` module, or an
+                                     :class:`EncDec` for the encdec family)
   prefill(params, batch)          -> (last-position logits, cache)
   decode(params, cache, tokens)   -> (logits, cache)
 
@@ -12,7 +13,9 @@ shape (d_in, d_out), float32 norm weights); the layer stack is a loop
 over per-layer modules instead of a ``lax.scan`` over stacked leaves, and
 a Python ``if`` takes the place of the hybrid's ``lax.cond``.  The cache
 keeps the reference's layout and a 0-d int32 ``len``: ``k``, ``v`` of
-shape (L, B, Smax, KV, hd) (dense); ``conv`` (L, B, W-1, conv_dim),
+shape (L, B, Smax, KV, hd) (dense, moe, vlm; encdec adds the decoder's
+cross-attention K/V ``xk``, ``xv`` of (L, B, enc_seq, KV, hd), which
+decode reads and never writes); ``conv`` (L, B, W-1, conv_dim),
 ``state`` (L, B, H, P, N) float32 and, for the hybrid, ``shared``, a
 (k, v) pair of (n_inv, B, Smax, KV, hd) for the shared attention block's
 invocations.  ``decode`` writes into the cache tensors in place (the
@@ -23,9 +26,17 @@ position to Smax - 1.
 A moe layer's ``moe`` group holds the router, the experts' weights and,
 for llama4-scout, a nested ``shared`` MLP group; prefill and decode both
 run the one-hot einsum dispatch (``moe.moe_apply_einsum``), as the
-reference's serving does.  The encdec and vlm families raise
-NotImplementedError; they, ``loss`` and training are a later slice
-(ROADMAP queue 1 item 7).
+reference's serving does.
+
+The encdec family is whisper's stack: ``batch["frames"]`` (B, enc_seq,
+d_model), cast to the model dtype, run through an unmasked encoder; the
+decoder adds learned positions (``dec_pos_emb`` read at ``len``, clamped
+to its last row in decode as ``dynamic_slice_in_dim`` clamps), and each
+layer runs causal self attention, cross attention over the encoder's
+output (unmasked, Sq != Sk) and an MLP.  The vlm family puts
+``batch["patches"]`` (B, n_patches, d_model) in front of the token
+embeddings and runs the dense stack, so ``len`` and the positions count
+the patches.  ``loss`` and training are a later slice.
 """
 from __future__ import annotations
 
@@ -41,19 +52,15 @@ from repro_torch.models import ssm as SSM
 
 Batch = Dict[str, torch.Tensor]
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 MAMBA = ("ssm", "hybrid")            # the families with Mamba2 layers
-_LATER = {
-    "encdec": "ROADMAP queue 1 item 7 (the encoder-decoder stack)",
-    "vlm": "ROADMAP queue 1 item 7 (the VLM patch front end)",
-}
+MAX_DEC_POS = 32_768                 # rows of the encdec's dec_pos_emb
 
 
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"{_LATER.get(cfg.family, 'ROADMAP queue 1 item 7')} brings it")
+        raise ValueError(f"{cfg.name}: unknown model family "
+                         f"{cfg.family!r}; one of {PORTED}")
 
 
 class _Group(nn.Module):
@@ -107,11 +114,30 @@ class LM(nn.Module):
                              else Block(shared_block))
 
 
+class EncDec(nn.Module):
+    """Whisper's stack: tied token embedding, learned decoder and encoder
+    positions, the encoder's blocks (ln1, attn, ln2, mlp) and final norm,
+    the decoder's blocks (ln1, attn, lnx, xattn, ln2, mlp) and final
+    norm."""
+
+    def __init__(self, tok_emb, dec_pos_emb, enc_pos_emb, enc_layers,
+                 enc_ln_f, layers, ln_f):
+        super().__init__()
+        self.tok_emb = nn.Parameter(tok_emb, requires_grad=False)
+        self.dec_pos_emb = nn.Parameter(dec_pos_emb, requires_grad=False)
+        self.enc_pos_emb = nn.Parameter(enc_pos_emb, requires_grad=False)
+        self.enc_layers = nn.ModuleList(Block(t) for t in enc_layers)
+        self.enc_ln_f = _params(enc_ln_f)
+        self.layers = nn.ModuleList(Block(t) for t in layers)
+        self.ln_f = _params(ln_f)
+
+
 class Model(NamedTuple):
     cfg: ModelConfig
-    init: Callable[[torch.Generator], LM]
-    prefill: Callable[[LM, Batch], Tuple[torch.Tensor, Dict]]
-    decode: Callable[[LM, Dict, torch.Tensor], Tuple[torch.Tensor, Dict]]
+    init: Callable[[torch.Generator], nn.Module]
+    prefill: Callable[[nn.Module, Batch], Tuple[torch.Tensor, Dict]]
+    decode: Callable[[nn.Module, Dict, torch.Tensor],
+                     Tuple[torch.Tensor, Dict]]
 
 
 # ---------------------------------------------------------------------------
@@ -127,36 +153,57 @@ def _attn_init(cfg: ModelConfig, gen: torch.Generator):
             "wo": L.dense_init(gen, H * hd, d, dt)}
 
 
-def _qkv(cfg, p, x):
+def _qkv(cfg, p, x, kv_x=None):
     B, S = x.shape[:2]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kv_x = x if kv_x is None else kv_x
+    Skv = kv_x.shape[1]
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    k = (kv_x @ p["wk"]).reshape(B, Skv, KV, hd)
+    v = (kv_x @ p["wv"]).reshape(B, Skv, KV, hd)
     return q, k, v
 
 
-def _attn_full(cfg, p, x):
-    """Full-sequence causal self attention.  Returns (out, (k, v))."""
+def _attn_full(cfg, p, x, pos0=0, *, causal=True, use_rope=True):
+    """Full-sequence self attention.  Returns (out, (k, v))."""
     q, k, v = _qkv(cfg, p, x)
-    if cfg.rope_frac > 0:
-        pos = torch.arange(x.shape[1], device=x.device)
+    if use_rope and cfg.rope_frac > 0:
+        pos = pos0 + torch.arange(x.shape[1], device=x.device)
         q = L.rope(q, pos, cfg.rope_theta, cfg.rope_frac)
         k = L.rope(k, pos, cfg.rope_theta, cfg.rope_frac)
-    o = L.chunked_attention(q, k, v, causal=True, window=cfg.window)
+    o = L.chunked_attention(q, k, v, causal=causal,
+                            window=cfg.window if causal else 0)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
-def _attn_decode(cfg, p, x, k_cache, v_cache, pos):
+def _attn_cross(cfg, p, x, k, v):
+    """Cross attention against precomputed encoder K/V (no mask, no
+    rope): Sq is the decoder's length, Sk the encoder's."""
+    B, S = x.shape[:2]
+    H, hd = cfg.n_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    o = L.chunked_attention(q, k, v, causal=False)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def _attn_decode(cfg, p, x, k_cache, v_cache, pos, *, use_rope=True,
+                 cross=False):
     """Single-token attention; writes the token's K/V into the caches in
-    place at ``min(pos, Smax - 1)``.  Returns (out, k_cache, v_cache)."""
+    place at ``min(pos, Smax - 1)``, or with ``cross`` attends over every
+    position of the (encoder) caches and writes nothing.  Returns (out,
+    k_cache, v_cache)."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    if cross:
+        if use_rope and cfg.rope_frac > 0:
+            q = L.rope(q, pos.reshape(1), cfg.rope_theta, cfg.rope_frac)
+        o = L.decode_attention(q, k_cache, v_cache, k_cache.shape[1] - 1)
+        return o.reshape(B, -1) @ p["wo"], k_cache, v_cache
     k = (x @ p["wk"]).reshape(B, 1, KV, hd)
     v = (x @ p["wv"]).reshape(B, 1, KV, hd)
-    if cfg.rope_frac > 0:
+    if use_rope and cfg.rope_frac > 0:
         pp = pos.reshape(1)
         q = L.rope(q, pp, cfg.rope_theta, cfg.rope_frac)
         k = L.rope(k, pp, cfg.rope_theta, cfg.rope_frac)
@@ -274,6 +321,85 @@ def _ssm_stack_decode(cfg, params: LM, h, cache, pos):
     return h
 
 
+# ---------------------------------------------------------------------------
+# whisper-style encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _encdec_init(cfg: ModelConfig, gen: torch.Generator) -> EncDec:
+    dt = getattr(torch, cfg.dtype)
+    d, dev = cfg.d_model, gen.device
+
+    def pos_emb(rows):
+        w = torch.randn((rows, d), generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (w * 0.01).to(dt)
+
+    def enc_layer():
+        return {"ln1": L.norm_init(cfg, d, dev), "attn": _attn_init(cfg, gen),
+                "ln2": L.norm_init(cfg, d, dev),
+                "mlp": L.mlp_init(cfg, gen, d, cfg.d_ff)}
+
+    def dec_layer():
+        return {"ln1": L.norm_init(cfg, d, dev), "attn": _attn_init(cfg, gen),
+                "lnx": L.norm_init(cfg, d, dev),
+                "xattn": _attn_init(cfg, gen),
+                "ln2": L.norm_init(cfg, d, dev),
+                "mlp": L.mlp_init(cfg, gen, d, cfg.d_ff)}
+
+    return EncDec(L.embed_init(gen, cfg.vocab_padded, d, dt),
+                  pos_emb(MAX_DEC_POS), pos_emb(cfg.enc_seq),
+                  [enc_layer() for _ in range(cfg.n_enc_layers)],
+                  L.norm_init(cfg, d, dev),
+                  [dec_layer() for _ in range(cfg.n_layers)],
+                  L.norm_init(cfg, d, dev))
+
+
+def _encode(cfg, params: EncDec, frames):
+    """The encoder over ``frames`` (already in the model dtype)."""
+    h = frames + params.enc_pos_emb[None, :frames.shape[1]]
+    for lp in params.enc_layers:
+        y, _ = _attn_full(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1),
+                          causal=False, use_rope=False)
+        h = h + y
+        h = h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
+    return L.apply_norm(cfg, h, params.enc_ln_f)
+
+
+def _decode_stack_encdec(cfg, params: EncDec, h, enc_out):
+    """Full-sequence decoder pass.  Returns (h, (self_k, self_v, x_k,
+    x_v)), each stacked on a leading layer axis."""
+    KV, hd = cfg.n_kv_heads, cfg.head_dim_
+    B = h.shape[0]
+    kvs = []
+    for lp in params.layers:
+        y, (k, v) = _attn_full(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1),
+                               use_rope=False)
+        h = h + y
+        xk = (enc_out @ lp.xattn["wk"]).reshape(B, -1, KV, hd)
+        xv = (enc_out @ lp.xattn["wv"]).reshape(B, -1, KV, hd)
+        h = h + _attn_cross(cfg, lp.xattn, L.apply_norm(cfg, h, lp.lnx),
+                            xk, xv)
+        h = h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
+        kvs.append((k, v, xk, xv))
+    return h, tuple(torch.stack(leaf) for leaf in zip(*kvs))
+
+
+def _encdec_decode(cfg, params: EncDec, h, cache, pos):
+    """One-token decode through the decoder; writes the self-attention
+    K/V into the cache in place and reads the cross K/V."""
+    for i, lp in enumerate(params.layers):
+        y, _, _ = _attn_decode(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1),
+                               cache["k"][i], cache["v"][i], pos,
+                               use_rope=False)
+        h = h + y[:, None, :]
+        y, _, _ = _attn_decode(cfg, lp.xattn, L.apply_norm(cfg, h, lp.lnx),
+                               cache["xk"][i], cache["xv"][i], pos,
+                               use_rope=False, cross=True)
+        h = h + y[:, None, :]
+        h = h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
+    return h
+
+
 def _lm_head(cfg, params: LM, h):
     h = L.apply_norm(cfg, h, params.ln_f)
     w = params.tok_emb.T if cfg.tie_embeddings else params.lm_head
@@ -293,8 +419,10 @@ def build_model(cfg: ModelConfig) -> Model:
     dt = getattr(torch, cfg.dtype)
     mamba = cfg.family in MAMBA
 
-    def init(gen: torch.Generator) -> LM:
+    def init(gen: torch.Generator) -> nn.Module:
         """Random weights drawn from ``gen``, on ``gen``'s device."""
+        if cfg.family == "encdec":
+            return _encdec_init(cfg, gen)
         tok_emb = L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt)
         layers = [_layer_init(cfg, gen) for _ in range(cfg.n_layers)]
         lm_head = (None if cfg.tie_embeddings else
@@ -308,10 +436,25 @@ def build_model(cfg: ModelConfig) -> Model:
         return LM(tok_emb, layers, L.norm_init(cfg, cfg.d_model, gen.device),
                   lm_head, shared)
 
+    def embed(params: LM, batch: Batch):
+        h = params.tok_emb[batch["tokens"].long()]
+        if cfg.family == "vlm":
+            h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+        return h
+
     @torch.no_grad()
-    def prefill(params: LM, batch: Batch):
-        tokens = batch["tokens"]
-        h = params.tok_emb[tokens.long()]
+    def prefill(params: nn.Module, batch: Batch):
+        if cfg.family == "encdec":
+            enc_out = _encode(cfg, params, batch["frames"].to(dt))
+            h = params.tok_emb[batch["tokens"].long()]
+            h = h + params.dec_pos_emb[None, :h.shape[1]]
+            h, (k, v, xk, xv) = _decode_stack_encdec(cfg, params, h, enc_out)
+            logits = _lm_head(cfg, params, h[:, -1:, :])[:, 0]
+            cache = {"len": torch.tensor(h.shape[1], dtype=torch.int32,
+                                         device=h.device),
+                     "k": k, "v": v, "xk": xk, "xv": xv}
+            return logits, cache
+        h = embed(params, batch)
         cache = {"len": torch.tensor(h.shape[1], dtype=torch.int32,
                                      device=h.device)}
         if mamba:
@@ -330,10 +473,14 @@ def build_model(cfg: ModelConfig) -> Model:
         return logits, cache
 
     @torch.no_grad()
-    def decode(params: LM, cache: Dict, tokens: torch.Tensor):
+    def decode(params: nn.Module, cache: Dict, tokens: torch.Tensor):
         pos = cache["len"]
         h = params.tok_emb[tokens.long()]                    # (B, 1, D)
-        if mamba:
+        if cfg.family == "encdec":
+            at = torch.clamp(pos, max=MAX_DEC_POS - 1).reshape(1).long()
+            h = h + params.dec_pos_emb.index_select(0, at)[None]
+            h = _encdec_decode(cfg, params, h, cache, pos)
+        elif mamba:
             h = _ssm_stack_decode(cfg, params, h, cache, pos)
         else:
             for i, lp in enumerate(params.layers):
@@ -366,6 +513,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
             c["shared"] = (kv, kv)
         return c
     c["k"] = c["v"] = ((Ld, batch, max_seq, KV, hd), dt)
+    if cfg.family == "encdec":
+        c["xk"] = c["xv"] = ((Ld, batch, cfg.enc_seq, KV, hd), dt)
     return c
 
 

@@ -6,5 +6,6 @@ from repro_torch.traces.generator import (  # noqa: F401
     generate_calibrated,
     generate_taskset,
     n_tasks_for_offered_load,
+    scale_demand,
 )
 from repro_torch.traces import analysis  # noqa: F401

@@ -18,6 +18,7 @@ from repro_torch.core.numerics import fma
 from repro_torch.core.qos import recovery_slots
 from repro_torch.core.types import SimResult, TaskSet
 
+_CLASS_NAMES = {0: "batch", 1: "production", 2: "system"}
 _NEEDS_NODE_SERIES = (
     "needs the per-node series (SlotMetrics.{field} is empty); run the "
     "simulation with SimConfig(record_node_usage=True)")
@@ -70,6 +71,26 @@ def machine_level(result: SimResult) -> Dict[str, float]:
                     for k, v in cdf(ratios).items()})
         out[f"frac_idle_{name}"] = _mean(ratios < 0.01)
         out[f"frac_below_half_{name}"] = _mean(ratios < 0.5)
+    return out
+
+
+def task_level(ts: TaskSet) -> Dict[str, float]:
+    """Fig. 4/5: usage-vs-request statistics, overall and per class."""
+    out = {}
+    mean_ratio = ts.mean_usage / torch.clamp(ts.request, min=1e-6)
+    peak_ratio = ts.peak_usage / torch.clamp(ts.request, min=1e-6)
+    std_over_mean = ts.std_usage / torch.clamp(ts.mean_usage, min=1e-6)
+    for r, name in ((0, "cpu"), (1, "mem")):
+        out[f"mean_usage_over_request_{name}"] = _mean(mean_ratio[:, r])
+        out[f"peak_usage_over_request_{name}"] = _mean(peak_ratio[:, r])
+        out[f"std_over_mean_{name}"] = _mean(std_over_mean[:, r])
+        for cls in (0, 1, 2):
+            m = ts.priority == cls
+            denom = max(int(m.sum()), 1)
+            out[f"{_CLASS_NAMES[cls]}_mean_ratio_{name}"] = float(
+                torch.where(m, mean_ratio[:, r], 0.0).sum() / denom)
+            out[f"{_CLASS_NAMES[cls]}_peak_ratio_{name}"] = float(
+                torch.where(m, peak_ratio[:, r], 0.0).sum() / denom)
     return out
 
 

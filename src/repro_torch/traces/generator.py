@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.types import NUM_RESOURCES, NUM_SRC_BUCKETS, TaskSet
 
@@ -179,3 +180,12 @@ def arrival_counts(seed: int, n_slots: int, mean_rate: float,
         raise ValueError(
             f"unknown arrival pattern {pattern!r}; one of {ARRIVAL_PATTERNS}")
     return rng.poisson(np.maximum(rate, 0.0))
+
+
+def scale_demand(ts: TaskSet, scale: float) -> TaskSet:
+    """§5.6 sensitivity: scale demand but NOT the requests."""
+    return ts._replace(
+        mean_usage=ts.mean_usage * scale,
+        std_usage=ts.std_usage * scale,
+        peak_usage=torch.clamp(ts.peak_usage * scale, max=1.0),
+    )

@@ -1,4 +1,6 @@
-"""``repro_torch.train``: AdamW, the train step and checkpoints."""
+"""``repro_torch.train``: AdamW, the train step, checkpoints and the
+synthetic data stream."""
+from repro_torch.train.data import stream, synthetic_batch  # noqa: F401
 from repro_torch.train.optimizer import (  # noqa: F401
     AdamWConfig,
     AdamWState,

@@ -3,11 +3,14 @@
 The same numpy inputs go to the port's ``flash_attention`` adapter (a CPU
 tensor takes the plain version), the JAX oracle ``attention_ref`` and the
 JAX Pallas kernel run in interpret mode, on the six shapes of
-``tests/test_kernels_flash.py`` and on ragged lengths.  Tolerances are
-those of that file: 2e-5 in float32 (sum order), 2e-2 in bfloat16 (one
-bf16 rounding of outputs of order 1).  The CUDA kernel itself runs only on
-the card, where ``chip_smoke.py`` holds it against the same plain version;
-here its launcher's checks and dispatch run with a fake launch.
+``tests/test_kernels_flash.py``, on ragged lengths, and with more or fewer
+queries than keys (Sq != Sk: whisper's cross attention, unmasked, and the
+causal mask, which aligns query 0 with key 0 in all three versions).
+Tolerances are those of that file: 2e-5 in float32 (sum order), 2e-2 in
+bfloat16 (one bf16 rounding of outputs of order 1).  The CUDA kernel
+itself runs only on the card, where ``chip_smoke.py`` holds it against the
+same plain version; here its launcher's checks and dispatch run with a
+fake launch.
 """
 import importlib
 
@@ -41,6 +44,22 @@ RAGGED = [
     (2, 2, 1, 1, 64, True, 0),
     (1, 2, 2, 100, 64, True, 24),
     (1, 2, 2, 71, 32, False, 0),
+]
+# Sq != Sk: B, H, KV, Sq, Sk, hd, causal.  Sk a multiple of the Pallas
+# block (64), so the interpret-mode kernel runs too; Sq = 1 is one decoder
+# token against the frames.
+CROSS = [
+    (1, 4, 4, 64, 256, 64, False),
+    (2, 4, 2, 1, 128, 64, False),
+    (1, 2, 2, 128, 64, 128, True),    # more queries than keys
+    (1, 4, 1, 64, 192, 32, True),
+]
+# Ragged Sk (against attention_ref alone), whisper's 1500 frames among them.
+CROSS_RAGGED = [
+    (1, 4, 4, 37, 1500, 64, False),
+    (2, 2, 2, 5, 150, 64, False),
+    (1, 8, 2, 71, 100, 128, True),
+    (1, 2, 2, 100, 37, 80, True),
 ]
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
@@ -89,6 +108,40 @@ def test_plain_matches_reference_ragged(B, H, KV, S, hd, causal, window,
     got = _port(qkv, causal, window, tdt)
     want = j_ref(*(jnp.asarray(x, jdt) for x in qkv), causal=causal,
                  window=window)
+    assert _err(got, want) < tol
+
+
+def _cross_inputs(b, h, kv, sq, sk, hd, seed):
+    """(B, H, Sq, hd) q and (B, KV, Sk, hd) k, v as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, h, sq, hd), (b, kv, sk, hd), (b, kv, sk, hd))]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", CROSS)
+def test_plain_matches_reference_and_interpret_kernel_sq_ne_sk(
+        B, H, KV, Sq, Sk, hd, causal, dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    qkv = _cross_inputs(B, H, KV, Sq, Sk, hd, seed=Sq + Sk)
+    got = _port(qkv, causal, 0, tdt)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in qkv)
+    want = j_ref(jq, jk, jv, causal=causal)
+    kern = j_flash_bhsd(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                        interpret=True)
+    assert got.shape == (B, H, Sq, hd)
+    assert _err(got, want) < tol
+    assert _err(got, kern) < tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", CROSS_RAGGED)
+def test_plain_matches_reference_ragged_sq_ne_sk(B, H, KV, Sq, Sk, hd,
+                                                 causal, dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    qkv = _cross_inputs(B, H, KV, Sq, Sk, hd, seed=Sk)
+    got = _port(qkv, causal, 0, tdt)
+    want = j_ref(*(jnp.asarray(x, jdt) for x in qkv), causal=causal)
     assert _err(got, want) < tol
 
 
@@ -185,6 +238,48 @@ def test_launcher_takes_serving_views(fake_launch, hd, H, KV):
     # (b, h, s) strides of each view: the head stride is hd, 160 or 224 bytes
     assert args[13:16] == (37 * H * hd, hd, H * hd)
     assert args[22:25] == (37 * H * hd, hd, H * hd)
+
+
+def test_launcher_takes_cross_attention_views(monkeypatch):
+    """Whisper's cross attention as the decoder hands it on: q from the
+    (B, T, H, hd) projection of T = 447 tokens, k and v from the
+    (B, 1500, KV, hd) projections of the encoder's output, out a (B, T,
+    H, hd) buffer, all bf16 transposed views; the library is faked at
+    ``_build.load``, so the argument types, the handle and the count are
+    the launcher's own."""
+    calls = []
+
+    def fwd(*args):
+        calls.append(args)
+        return 0
+
+    class Lib:
+        flash_attention_fwd = fwd
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(fa_mod._build, "load", lambda name: Lib)
+    monkeypatch.setattr(fa_mod, "_FN", None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream)
+    fa_mod.reset_launches()
+    B, T, E, H, hd = 2, 447, 1500, 16, 64
+
+    def view(s):
+        t = torch.zeros((B, s, H, hd), dtype=torch.bfloat16)
+        return t.as_subclass(_OnCard).transpose(1, 2)
+
+    q, k, v, out = view(T), view(E), view(E), view(T)
+    assert all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    got = flash_attention_bhsd(q, k, v, causal=False, out=out)
+    assert got is out and fa_mod.LAUNCHES == 1 and len(calls) == 1
+    args = calls[0]
+    assert len(fwd.argtypes) == len(args)
+    # dtype, B, H, KV, Sq, Sk, hd, causal, window
+    assert args[4:13] == (1, B, H, H, T, E, hd, 0, 0)
+    assert args[13:16] == (T * H * hd, hd, H * hd)        # q
+    assert args[16:19] == args[19:22] == (E * H * hd, hd, H * hd)  # k, v
+    assert args[22:25] == (T * H * hd, hd, H * hd)        # out
 
 
 @pytest.mark.parametrize("what", ["base", "stride"])

@@ -240,7 +240,61 @@ def test_full_width_config_is_the_reference_one():
             j_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        build_model(get_smoke_config(arch))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_builds_prefills_and_decodes(arch):
+    """Each of the ten configs' smoke size: random weights, a prefill of
+    ``synthetic_batch``'s inputs and one decode step, finite logits of
+    the padded vocab, and caches of the reference's leaves and shapes."""
+    from repro.models import cache_specs as j_cache_specs
+    from repro_torch.models import cache_specs
+    from repro_torch.train import synthetic_batch
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = synthetic_batch(cfg, 2, 12, 0, 0, device="cpu")
+    del batch["labels"]
+    logits, cache = model.prefill(params, batch)
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert int(cache["len"]) == 12 + (cfg.n_patches if cfg.family == "vlm"
+                                      else 0)
+    specs = cache_specs(cfg, 2, 20)
+    want = j_cache_specs(j_smoke(arch), 2, 20)
+    assert set(specs) == set(want)
+    for key, spec in want.items():
+        for s, w in zip(specs[key] if isinstance(spec, tuple) else
+                        (specs[key],), spec if isinstance(spec, tuple)
+                        else (spec,)):
+            assert s[0] == w.shape, key
+    c2 = init_cache(cfg, 2, 20, device="cpu")
+    if cfg.family == "encdec":
+        c2["xk"], c2["xv"] = cache["xk"], cache["xv"]
+    lg, c2 = model.decode(params, c2, batch["tokens"][:, :1])
+    assert lg.shape == (2, cfg.vocab_padded)
+    assert int(c2["len"]) == 1
+    assert bool(torch.isfinite(lg.float()).all())
+
+
+@pytest.mark.parametrize("arch,missing", [("whisper-medium", "frames"),
+                                          ("llava-next-mistral-7b",
+                                           "patches")])
+def test_serving_backend_admission_raises_like_the_reference(arch, missing):
+    """The reference's backend prefills a request from its tokens alone,
+    so a whisper or llava admission raises KeyError for the missing input
+    there; the port's backend does exactly the same."""
+    from repro.launch import serve as j_serve
+    from repro.serving.engine import Request as JRequest
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Request
+
+    backends = ((j_serve.RealModelBackend(arch, 1, 2, max_seq=32),
+                 JRequest(rid=0, prompt_len=5, max_tokens=8, true_tokens=4,
+                          replica=0)),
+                (serve.RealModelBackend(arch, 1, 2, max_seq=32,
+                                        device="cpu"),
+                 Request(rid=0, prompt_len=5, max_tokens=8, true_tokens=4,
+                         replica=0)))
+    for backend, req in backends:
+        with pytest.raises(KeyError, match=missing):
+            backend.on_admit(req)
