@@ -206,6 +206,32 @@ them frames or patches), after phase s:
      tokens (S = 1576), 32 decode steps after the first (32 flash
      launches per prefill), and phase t's checks and numbers.
 
+Training (the ssm family), phase v after phase k and phase w after u:
+
+  v. the SSD scan's backward kernel (``ssd_scan_bwd.cu``) against its
+     plain version ``ssd_scan_bwd_ref`` on the same CUDA tensors, dx, dB,
+     dC, da and ddt: phase k's test cases and ragged S, mamba2-370m's
+     training shape (B = 8, S = 2048, H = 32, P = 64, N = 128; also with
+     x, B and C as views of one xBC tensor, as ssm_apply passes them) and
+     zamba2-7b's (B = 1, S = 2048, H = 112, P = 64, N = 64), Q = 256, in
+     f32 (within 1e-4 of max(1, each gradient's largest plain magnitude))
+     and bf16 (2e-2), each case twice and bit-equal; times at both
+     training shapes (eager, and replayed from a CUDA graph) beside the
+     bound, the plain version (autograd through ``ssd_three_pass``, its
+     backward alone) and ``ssd_scan_bwd_ref``.
+  w. ``launch.train.train`` on mamba2-370m at its published widths (48
+     layers, d_model 1024), bf16, random weights, batch 8 x 2048 tokens,
+     8 steps with per-layer recomputation and checkpoints every 4, then a
+     resume from the step-4 checkpoint to step 8: finite losses, the last
+     below the first, the resumed losses within 1e-3 of the
+     uninterrupted run's (bit-equality logged), 48 backward and 96
+     forward SSD launches a step; ms per step (CUDA events), tokens/s,
+     peak memory, a profiled step (kernels, idle share, the backward's
+     share); the smoke config in f32 on the card against the CPU port
+     from the same weights, three steps' losses and gradients; and a
+     dense smoke config's loss under grad on the card raising the flash
+     kernel's missing-backward error.
+
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
 1 before doing anything.
@@ -1953,6 +1979,12 @@ SSD_F32_REL = 5e-4
 TF32_FLOPS = 494.7e12
 
 
+def _peak_flops(elt: int) -> float:
+    """The dense tensor-core peak for inputs of ``elt`` bytes: bf16's, or
+    float32's through TF32."""
+    return BF16_FLOPS if elt == 2 else TF32_FLOPS
+
+
 def _ssd_inputs(b, s, h, p, n, gen, dev, dtype=torch.float32):
     """The JAX test's distributions: x, B, C normal; dt = softplus(normal);
     A = U[1, 8]."""
@@ -1965,12 +1997,12 @@ def _ssd_inputs(b, s, h, p, n, gen, dev, dtype=torch.float32):
 
 
 def _ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int, elt: int):
-    """(bound ms, what bounds it) of one call.  Operations, at the TF32
-    tensor-core peak: per chunk of r rows the causal half of C B^T, r (r +
-    1) N, once for all heads (they share one (B, C) group), and per head
-    the causal half of the scores times x, r (r + 1) P, and the two state
-    products, 4 r N P.  Bytes, at 3.35 TB/s: x, B, C, a, dt read and y,
-    the state written once."""
+    """(bound ms, what bounds it) of one call.  Operations, at the
+    tensor-core peak for the inputs' type (``_peak_flops``): per chunk of
+    r rows the causal half of C B^T, r (r + 1) N, once for all heads (they
+    share one (B, C) group), and per head the causal half of the scores
+    times x, r (r + 1) P, and the two state products, 4 r N P.  Bytes, at
+    3.35 TB/s: x, B, C, a, dt read and y, the state written once."""
     shared = per_head = 0
     for c0 in range(0, s, q):
         r = min(q, s - c0)
@@ -1979,7 +2011,7 @@ def _ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int, elt: int):
     flops = b * shared + b * h * per_head
     n_bytes = (2 * b * s * h * p + 2 * b * s * n) * elt + 2 * b * s * h * 4 \
         + b * h * p * n * 4
-    by_ops = flops / TF32_FLOPS * 1e3
+    by_ops = flops / _peak_flops(elt) * 1e3
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                    else "bytes")
@@ -2096,6 +2128,162 @@ def ssd_vs_plain(dev) -> dict:
                                               SSD_TIMED_S[0])]
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
+                launches=0, max_abs_err=max(worst.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phase v: the SSD scan's backward kernel against plain
+# ---------------------------------------------------------------------------
+
+# The training shapes: mamba2-370m at phase w's batch, zamba2-7b at one
+# sequence; (name, Bt, S, H, P, N), Q = 256.
+SSD_BWD_FULL = (("mamba2-370m", 8, 2048, 32, 64, 128),
+                ("zamba2-7b", 1, 2048, 112, 64, 64))
+# float32: the kernel sums in another order than ssd_scan_bwd_ref's
+# einsums; each gradient within 1e-4 of max(1, its largest plain
+# magnitude) (the floor of 1 as in _ssd_check: da is exactly 0 at S = 1).
+# bfloat16: dx, dB and dC are rounded once to bf16 from float32 sums (one
+# rounding step is 2^-8 of the value); held to the kernels' 2e-2 of the
+# same scale.
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+GRAD_NAMES = ("dx", "dB", "dC", "da", "ddt")
+
+
+def _ssd_bwd_inputs(b, s, h, p, n, gen, dev, dtype):
+    """_ssd_inputs' distributions, a = dt * A, and dy normal."""
+    x, B, C, dt, A_log = _ssd_inputs(b, s, h, p, n, gen, dev, dtype)
+    a = dt * -torch.exp(A_log)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    return x, B, C, a, dt, dy
+
+
+def _ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
+                   elt: int):
+    """(bound ms, what bounds it) of one backward call.  Operations, at
+    the tensor-core peak for the inputs' type (as ``_ssd_bound``): per
+    chunk of r rows the causal half of C B^T, r (r + 1) N, once for all
+    heads, and per head the causal halves of dy x^T and of the products
+    for dx, dB and dC, r (r + 1) (2 P + 2 N), and five (P, N) products
+    over the rows (the states entering and the gradients leaving the
+    chunk, dy^T S, D B and x^T D), 10 r P N.  Bytes, at 3.35 TB/s: x, dy,
+    B, C read and dx, dB, dC written once in the input dtype, a and dt
+    read and da and ddt written once in float32."""
+    shared = per_head = 0
+    for c0 in range(0, s, q):
+        r = min(q, s - c0)
+        shared += r * (r + 1) * n
+        per_head += r * (r + 1) * (2 * p + 2 * n) + 10 * r * p * n
+    flops = b * shared + b * h * per_head
+    n_bytes = (3 * b * s * h * p + 4 * b * s * n) * elt + 4 * b * s * h * 4
+    by_ops = flops / _peak_flops(elt) * 1e3
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def _ssd_bwd_check(name: str, got, want, tol: float, worst: dict) -> None:
+    msgs = []
+    for what, g, w in zip(GRAD_NAMES, got, want):
+        scale = max(float(w.abs().max()), 1.0)
+        diff = float((g.float() - w).abs().max())
+        worst[g.dtype] = max(worst[g.dtype], diff)
+        if not diff <= tol * scale:
+            raise AssertionError(f"ssd_bwd {name}: {what} max abs error "
+                                 f"{diff} is {diff / scale:.3g} of max(1, "
+                                 f"largest plain value) {scale:.3g}, above "
+                                 f"{tol:.3g}")
+        msgs.append(f"{what} {diff / scale:.2e}")
+    log(f"[ssd_bwd] {name}: " + ", ".join(msgs) + f" of max(1, max "
+        f"|plain|) (tolerance {tol:.3g})")
+
+
+def ssd_bwd_vs_plain(dev) -> dict:
+    """Phase v: the backward kernel against ``ssd_scan_bwd_ref``, twice
+    bit-equal; times at the training shapes."""
+    from repro_torch.kernels.ssd_scan.ref import (ssd_scan_bwd_ref,
+                                                  ssd_three_pass)
+    launcher = importlib.import_module("repro_torch.kernels.ssd_scan"
+                                       ".ssd_scan")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    h0, p0, n0 = SSD_FULL[0][1:]
+    cases = ([(f"test case {c}", *c) for c in SSD_TEST_CASES]
+             + [(f"mamba2-370m shape, ragged S={s}", 1, s, h0, p0, n0,
+                 SSD_CHUNK) for s in SSD_RAGGED_S]
+             + [(f"{name} B={b} S={s}", b, s, h, p, n, SSD_CHUNK)
+                for name, b, s, h, p, n in SSD_BWD_FULL])
+
+    def case(label, args, q):
+        got = launcher.ssd_scan_chunked_bwd(*args, q)
+        again = launcher.ssd_scan_chunked_bwd(*args, q)
+        torch.cuda.synchronize()
+        for what, g1, g2 in zip(GRAD_NAMES, got, again):
+            if not torch.equal(g1, g2):
+                raise AssertionError(f"ssd_bwd {label}: {what} differs "
+                                     f"between two calls")
+        dtype = args[0].dtype
+        _ssd_bwd_check(f"{label} {str(dtype)[6:]}", got,
+                       ssd_scan_bwd_ref(*args, q), SSD_BWD_TOL[dtype], worst)
+
+    for label, b, s, h, p, n, q in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            case(label, _ssd_bwd_inputs(b, s, h, p, n, gen, dev, dtype), q)
+    # As the training path feeds it: x, B and C as views of one xBC
+    # tensor, sliced as ssm_apply slices them.
+    name, b, s, h, p, n = SSD_BWD_FULL[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, B, C, a, dt, dy = _ssd_bwd_inputs(b, s, h, p, n, gen, dev, dtype)
+        xBC = torch.cat([x.reshape(b, s, h * p), B, C], dim=-1)
+        del x, B, C
+        views = (xBC[..., :h * p].reshape(b, s, h, p),
+                 xBC[..., h * p:h * p + n], xBC[..., h * p + n:])
+        if any(v.is_contiguous() for v in views):
+            raise AssertionError("ssd_bwd: x, B and C are not strided views")
+        case(f"{name} B={b} S={s}, x, B, C views of xBC", (*views, a, dt, dy),
+             SSD_CHUNK)
+        del xBC, views, a, dt, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = {}
+    for name, b, s, h, p, n in SSD_BWD_FULL:
+        args = _ssd_bwd_inputs(b, s, h, p, n, gen, dev, torch.bfloat16)
+        ms = _event_ms(lambda: launcher.ssd_scan_chunked_bwd(
+            *args, SSD_CHUNK), reps=10)
+        graph_ms = _median_ms(lambda: launcher.ssd_scan_chunked_bwd(
+            *args, SSD_CHUNK), reps=5, inner=20)
+        ref_ms = _event_ms(lambda: ssd_scan_bwd_ref(*args, SSD_CHUNK),
+                           reps=3)
+        # The plain version: autograd through ssd_three_pass, the backward
+        # alone (the graph is kept between calls).
+        x, B, C, a, dt, dy = (t.detach().clone().requires_grad_(
+            t.is_floating_point()) for t in args)
+        A_log = torch.log(1 + 7 * torch.rand((h,), generator=gen,
+                                             device=dev)).requires_grad_()
+        y, _ = ssd_three_pass(x, B, C, dt, A_log, SSD_CHUNK)
+        ins = (x, B, C, dt, A_log)
+        plain_ms = _event_ms(lambda: torch.autograd.grad(
+            y, ins, dy.float(), retain_graph=True), reps=3)
+        del y, ins, x, B, C, a, dt, dy
+        bound_ms, bound_by = _ssd_bwd_bound(b, s, h, p, n, SSD_CHUNK, 2)
+        timed[name] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"[ssd_bwd] {name} B={b} H={h} P={p} N={n} S={s} Q={SSD_CHUNK}"
+            f" bf16: kernel {ms:.4f} ms eager (graph replay "
+            f"{graph_ms:.4f} ms), plain (autograd through ssd_three_pass, "
+            f"backward alone) {plain_ms:.4f} ms, ssd_scan_bwd_ref "
+            f"{ref_ms:.4f} ms, library: none; bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.4f} of it")
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+    ms, plain_ms, bound_ms, bound_by = timed[SSD_BWD_FULL[0][0]]
+    return dict(name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/ssd_scan/csrc/"
+                       "ssd_scan_bwd.cu",
                 replaces="src/repro/kernels/ssd_scan/ssd_scan.py:26",
                 launches=0, max_abs_err=max(worst.values()), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2505,7 +2693,8 @@ def _smoke_against_cpu(dev, arch: str) -> None:
 # Kernel names of the port's prefill kernels in a profiler trace.
 PORT_KERNELS = {"flash_attention": ("flash_fwd_",),
                 "ssd_scan": ("chunk_state", "state_pass", "chunk_scan",
-                             "ssd_fwd")}
+                             "ssd_fwd"),
+                "ssd_scan_bwd": ("state_bwd", "chunk_bwd", "finish")}
 
 
 def profile_serving(dev, cfg=None) -> None:
@@ -3075,6 +3264,210 @@ def vlm_end_to_end(dev) -> int:
     return _model_phase(dev, VLM_ARCH, VLM_BATCH, VLM_T, "[vlm]")
 
 
+# ---------------------------------------------------------------------------
+# phase w: training mamba2-370m at full width through launch/train.py
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "mamba2-370m"
+TRAIN = dict(steps=8, batch=8, seq=2048, ckpt_every=4)
+TRAIN_RESUME_AT = 4
+# The resumed run's losses against the uninterrupted run's: the two start
+# from the same checkpoint bits, but the embedding's backward (index_put_
+# with accumulate=True) adds a repeated token's rows with float32 atomics
+# in a run-dependent order, so a bf16 weight can round the other way; the
+# losses are held to a relative 1e-3 and their bit-equality is logged.
+TRAIN_RESUME_RTOL = 1e-3
+TRAIN_SMOKE = dict(batch=2, seq=64, steps=3)
+# The smoke config in float32, card (the SSD kernels, forward and
+# backward) against the CPU port (autograd through ssd_chunked), from the
+# same weights: sums in other orders, and three AdamW steps on top, whose
+# update m / sqrt(v) amplifies a difference in a near-zero gradient.
+TRAIN_SMOKE_LOSS_RTOL = 1e-4
+TRAIN_SMOKE_GRAD_REL = 1e-3
+
+
+def _train_smoke_against_cpu(dev) -> None:
+    """mamba2-370m's smoke config in float32 on the card and on the CPU
+    port from the same weights: three steps' losses and gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, adamw_init, make_train_step,
+                                   optimizer_view, synthetic_batch,
+                                   value_and_grad)
+
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    model = build_model(cfg, remat=False)
+    cpu = torch.device("cpu")
+    runs = {}
+    for d in (cpu, dev):
+        gen = torch.Generator()
+        gen.manual_seed(5)
+        params = model.init(gen).to(d)    # the same weights on both
+        runs[d.type] = [params, adamw_init(optimizer_view(params))]
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                              total_steps=10))
+    worst_loss = worst_grad = 0.0
+    for i in range(TRAIN_SMOKE["steps"]):
+        out = {}
+        for d in (cpu, dev):
+            batch = synthetic_batch(cfg, TRAIN_SMOKE["batch"],
+                                    TRAIN_SMOKE["seq"], 0, i, device=d)
+            params, opt = runs[d.type]
+            out[d.type] = value_and_grad(model, params, batch)
+            runs[d.type][:2] = step(params, opt, batch)[:2]
+        (lc, _, gc_), (lg, _, gg) = out["cpu"], out[dev.type]
+        rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        worst_loss = max(worst_loss, rel)
+        if not rel <= TRAIN_SMOKE_LOSS_RTOL:
+            raise AssertionError(f"train smoke step {i}: card loss "
+                                 f"{float(lg)} vs CPU {float(lc)}")
+        for k, g in gc_.items():
+            scale = float(g.abs().max())
+            err = float((gg[k].cpu() - g).abs().max())
+            worst_grad = max(worst_grad, err / max(scale, 1e-30))
+            if not err <= TRAIN_SMOKE_GRAD_REL * scale:
+                raise AssertionError(f"train smoke step {i}: gradient {k} "
+                                     f"off by {err} of max {scale}")
+    log(f"[train] smoke {TRAIN_ARCH} f32, {TRAIN_SMOKE['steps']} steps at "
+        f"B={TRAIN_SMOKE['batch']} S={TRAIN_SMOKE['seq']}, card vs CPU: "
+        f"losses within {worst_loss:.3g} (rtol {TRAIN_SMOKE_LOSS_RTOL}), "
+        f"gradients within {worst_grad:.3g} of each leaf's largest "
+        f"(limit {TRAIN_SMOKE_GRAD_REL})")
+
+
+def _flash_raises_under_grad(dev) -> None:
+    """A dense smoke config's loss under grad on the card raises the
+    flash kernel's missing-backward error."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention.ops import FlashBackwardMissing
+    from repro_torch.models import build_model
+    from repro_torch.train import synthetic_batch, value_and_grad
+
+    cfg = get_smoke_config(ARCH)
+    model = build_model(cfg, remat=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    params = model.init(gen)
+    try:
+        value_and_grad(model, params, synthetic_batch(cfg, 2, 64, 0, 0,
+                                                      device=dev))
+    except FlashBackwardMissing as err:
+        log(f"[train] {ARCH} smoke loss under grad on the card raises "
+            f"FlashBackwardMissing: {err}")
+        return
+    raise AssertionError(f"{ARCH}: a loss under grad on the card did not "
+                         f"raise FlashBackwardMissing")
+
+
+def train_end_to_end(dev) -> int:
+    """Phase w: ``launch.train.train`` on mamba2-370m at full width, 8
+    steps with checkpoints every 4, then a resume from the step-4
+    checkpoint to step 8; returns the backward kernel's launches on that
+    path."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, adamw_init, make_train_step,
+                                   optimizer_view, synthetic_batch)
+
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    cfg = get_config(TRAIN_ARCH)
+    n_layers, steps = cfg.n_layers, TRAIN["steps"]
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        kw = dict(smoke=False, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                  ckpt_every=TRAIN["ckpt_every"], log_every=1,
+                  device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssd.reset_launches()
+        t0 = time.perf_counter()
+        params, _, losses = train(TRAIN_ARCH, steps=steps,
+                                  ckpt_dir=str(tmp / "a"), resume=False,
+                                  **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = ssd.LAUNCHES, ssd.BWD_LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train: a loss is not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train: the last loss {losses[-1]} is not "
+                                 f"below the first {losses[0]}")
+        if bwd != n_layers * steps or fwd != 2 * n_layers * steps:
+            raise AssertionError(
+                f"train: {fwd} forward and {bwd} backward SSD launches in "
+                f"{steps} steps, expected {2 * n_layers * steps} (the "
+                f"forward and its recomputation) and {n_layers * steps}")
+        log(f"[train] {TRAIN_ARCH} full width ({n_layers} layers, d_model "
+            f"{cfg.d_model}, H {cfg.ssm_heads} P {cfg.ssm_head_dim} N "
+            f"{cfg.ssm_state}, chunk {cfg.ssd_chunk}), B={TRAIN['batch']} "
+            f"S={TRAIN['seq']}, {steps} steps through launch/train.py: "
+            f"losses {[round(x, 4) for x in losses]}; {wall:.2f} s with "
+            f"init and checkpoints; peak memory {peak:.2f} GiB; SSD "
+            f"launches forward {fwd} (forward + recomputation), backward "
+            f"{bwd}")
+
+        # Resume from the step-4 checkpoint (keep=3 left steps 4 and 8).
+        (tmp / "b").mkdir()
+        name = f"step_{TRAIN_RESUME_AT:08d}"
+        shutil.copytree(tmp / "a" / name, tmp / "b" / name)
+        ssd.reset_launches()
+        resumed, _, res_losses = train(TRAIN_ARCH, steps=steps,
+                                       ckpt_dir=str(tmp / "b"), resume=True,
+                                       **kw)
+        bwd_resumed = ssd.BWD_LAUNCHES
+        if bwd_resumed != n_layers * (steps - TRAIN_RESUME_AT):
+            raise AssertionError(f"train: {bwd_resumed} backward SSD "
+                                 f"launches in the resumed run")
+        want = losses[TRAIN_RESUME_AT:]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(res_losses, want))
+        if len(res_losses) != len(want) or not worst <= TRAIN_RESUME_RTOL:
+            raise AssertionError(f"train: resumed losses {res_losses} vs "
+                                 f"{want}")
+        same = sum(torch.equal(p, q) for p, q in zip(
+            params.parameters(), resumed.parameters()))
+        n_params = len(list(params.parameters()))
+        log(f"[train] resumed from step {TRAIN_RESUME_AT}: losses "
+            f"{[round(x, 4) for x in res_losses]}, within {worst:.3g} of the "
+            f"uninterrupted run's (rtol {TRAIN_RESUME_RTOL}); losses "
+            f"bit-equal: {res_losses == want}; {same} of {n_params} "
+            f"parameter tensors bit-equal at step {steps}")
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # One step's time, tokens/s and where it goes.
+    model = build_model(cfg, remat=True)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                              total_steps=100))
+    state = [params, adamw_init(optimizer_view(params))]
+    batch = synthetic_batch(cfg, TRAIN["batch"], TRAIN["seq"], 0, steps,
+                            device=dev)
+
+    def one_step():
+        state[:2] = step(state[0], state[1], batch)[:2]
+
+    ms = _event_ms(one_step, reps=1)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    log(f"[train] one full-width step: {ms:.2f} ms (CUDA events), "
+        f"{tokens / ms * 1e3:.0f} tokens/s")
+    _profile(cfg, f"training step B={TRAIN['batch']} S={TRAIN['seq']}",
+             one_step)
+    del state, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _train_smoke_against_cpu(dev)
+    _flash_raises_under_grad(dev)
+    return bwd + bwd_resumed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3117,7 +3510,8 @@ def main() -> int:
     kernels = [pick, timed("2 (queue kernel)", queue_kernel_vs_plain, pick),
                *timed("a", batch_kernels_vs_plain),
                timed("g", flash_vs_plain),
-               timed("k", ssd_vs_plain)]
+               timed("k", ssd_vs_plain),
+               timed("v", ssd_bwd_vs_plain)]
     launches, ts, res_seq, seq_rate = timed("3", slice_end_to_end)
     launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
                                               res_seq)
@@ -3164,6 +3558,8 @@ def main() -> int:
     log(f"[launches] phase t: flash_attention {encdec}; phase u: "
         f"flash_attention {vlm}")
     launches["flash_attention"] += encdec + vlm
+    launches["ssd_scan_bwd"] = timed("w", train_end_to_end)
+    log(f"[launches] phase w: ssd_scan_bwd {launches['ssd_scan_bwd']}")
     launches["flex_score_batch_topk"] += faulted["flex_score_batch_topk"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -135,3 +135,72 @@ def learned_params(np_params: Mapping[str, np.ndarray], *,
     """The reference's usage-predictor parameters (``mlp_init``'s dict,
     numpy leaves) -> the port's float32 tensors on ``device``."""
     return {k: _tensor(k, v, device) for k, v in np_params.items()}
+
+
+_STACKED = ("layers", "enc_layers")
+
+
+def _named(params) -> Mapping[str, torch.Tensor]:
+    """The module's parameters by name, or a mapping of such names."""
+    if isinstance(params, Mapping):
+        return params
+    return dict(params.named_parameters())
+
+
+def model_tree(params) -> dict:
+    """The port's :class:`LM` or :class:`EncDec` (or a mapping of its
+    parameter names, as ``named_parameters`` gives them, to tensors: its
+    gradients) -> the reference's ``model.init`` tree of tensors:
+    ``layers`` and ``enc_layers`` stacked on a leading L axis (copies),
+    the other leaves as they are."""
+    tree: dict = {}
+    stacks: dict = {}
+
+    def put(path, leaf):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    for name, t in _named(params).items():
+        parts = name.split(".")
+        if parts[0] in _STACKED:
+            stacks.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = t
+        else:
+            put(parts, t)
+    for path, per_layer in stacks.items():
+        put(path, torch.stack([per_layer[i] for i in range(len(per_layer))]))
+    return tree
+
+
+def load_model_tree(params, tree: Mapping[str, Any]) -> None:
+    """Copy a reference-layout tree of tensors (``model_tree``'s, or a
+    restored checkpoint's) into the module's parameters, in place."""
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            parts = name.split(".")
+            if parts[0] in _STACKED:
+                node, path, i = tree[parts[0]], parts[2:], int(parts[1])
+            else:
+                node, path, i = tree, parts, None
+            for key in path:
+                node = node[key]
+            p.copy_(node if i is None else node[i])
+
+
+def model_params_to_numpy(cfg, params) -> dict:
+    """The inverse of :func:`model_params_from_numpy`: the reference's
+    tree layout (``model_tree``) with numpy leaves.  bfloat16 leaves come
+    out as float32 arrays (exact), since numpy has no bfloat16 of its
+    own."""
+    from repro_torch.models.model import require_ported
+
+    require_ported(cfg)
+
+    def leaves(node):
+        if isinstance(node, dict):
+            return {k: leaves(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return leaves(model_tree(params))

@@ -81,3 +81,102 @@ def ssd_three_pass(x, B, C, dt, A_log, chunk: int):
     y = y + torch.exp(acum)[..., None] * torch.einsum("bcln,bchpn->bclhp",
                                                       Cc, s_in)
     return y.reshape(Bt, nc * chunk, H, P)[:, :S], state
+
+
+def ssd_scan_bwd_ref(x, B, C, a, dt, dy, chunk: int):
+    """The backward of the chunked SSD scan with ``a`` and ``dt`` as
+    separate inputs (``ssd_scan_chunked``'s contract), in plain PyTorch:
+    the formulas the CUDA backward kernel computes, over the split of
+    ``ssd_three_pass`` (chunks of ``chunk`` rows, the ragged last one
+    zero-padded at dt = a = 0), all in float32.
+
+    Per chunk, with acum the within-chunk cumulative sum of a, L its last
+    row, S_c the state entering chunk c and D_c the gradient of the state
+    leaving it (zero after the last chunk, then carried back as
+    D_{c-1} = exp(acum_L) D_c + sum_l exp(acum_l) dy_l C_l^T):
+
+      G = C B^T, M_ls = exp(acum_l - acum_s) (s <= l, masked before the
+      exp), dyx_ls = dy_l . x_s, e_s = exp(acum_L - acum_s):
+      dx_s  = sum_l G M dt_s dy_l + e_s dt_s D B_s
+      ddt_s = sum_l G M dyx + e_s x_s . (D B_s)
+      dB_s  = sum_h [sum_l dyx M dt_s C_l + e_s dt_s x_s^T D]
+      dC_l  = sum_h [sum_s dyx M dt_s B_s + exp(acum_l) dy_l^T S_c]
+      d acum, then da by a reverse cumulative sum over the chunk.
+
+    x, dy: (Bt, S, H, P); B, C: (Bt, S, N); a, dt: (Bt, S, H).  Returns
+    (dx, dB, dC, da, ddt), float32, of the inputs' shapes.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+
+    def chunks(t):   # (Bt, S, ...) -> (Bt, nc, chunk, ...), zero-padded
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(Bt, nc, chunk, *t.shape[2:])
+
+    xc, Bc, Cc, dyc = chunks(x), chunks(B), chunks(C), chunks(dy)
+    ac, dtc = chunks(a), chunks(dt)
+    acum = torch.cumsum(ac, dim=2)                        # (Bt, nc, Q, H)
+    last = acum[:, :, -1]                                 # (Bt, nc, H)
+    e = torch.exp(last[:, :, None] - acum)                # e_s
+    w = e * dtc
+
+    # states entering each chunk, and the gradients leaving each chunk
+    local = torch.einsum("bcsh,bcshp,bcsn->bchpn", w, xc, Bc)
+    dloc = torch.einsum("bclh,bclhp,bcln->bchpn", torch.exp(acum), dyc, Cc)
+    s_in = torch.zeros((Bt, nc, H, P, N), dtype=torch.float32,
+                       device=x.device)
+    d_out = torch.zeros_like(s_in)
+    state = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    grad = torch.zeros_like(state)
+    for c in range(nc):
+        s_in[:, c] = state
+        state = torch.exp(last[:, c])[..., None, None] * state + local[:, c]
+    for c in reversed(range(nc)):
+        d_out[:, c] = grad
+        grad = torch.exp(last[:, c])[..., None, None] * grad + dloc[:, c]
+
+    # intra-chunk terms
+    G = torch.einsum("bcln,bcsn->bcls", Cc, Bc)[..., None]   # (.., l, s, 1)
+    diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]   # (.., l, s, H)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    M = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                              -torch.inf))
+    dyx = torch.einsum("bclhp,bcshp->bclsh", dyc, xc)
+    dts = dtc[:, :, None]                                  # dt_s
+    E = G * M * dyx
+    R = dyx * M * dts
+    dx = torch.einsum("bclsh,bclhp->bcshp", G * M * dts, dyc)
+    ddt = E.sum(dim=2)
+    dB = torch.einsum("bclsh,bcln->bcsn", R, Cc)
+    dC = torch.einsum("bclsh,bcsn->bcln", R, Bc)
+    Edt = E * dts
+    dacum = Edt.sum(dim=3) - Edt.sum(dim=2)
+
+    # the state entering the chunk (inter-chunk term of y)
+    SC = torch.einsum("bclhp,bchpn->bclhn", dyc, s_in)
+    eSC = torch.exp(acum)[..., None] * SC
+    dC = dC + eSC.sum(dim=3)
+    dacum = dacum + torch.einsum("bclhn,bcln->bclh", eSC, Cc)
+
+    # the state leaving the chunk
+    V = torch.einsum("bchpn,bcsn->bcshp", d_out, Bc)       # D B_s
+    xV = (xc * V).sum(dim=-1)
+    dx = dx + w[..., None] * V
+    ddt = ddt + e * xV
+    dB = dB + torch.einsum("bcsh,bcshp,bchpn->bcsn", w, xc, d_out)
+    u = w * xV
+    dacum = dacum - u
+    tail = (torch.exp(last) * (d_out * s_in).sum(dim=(-2, -1))
+            + u.sum(dim=2))                                # (Bt, nc, H)
+    da = torch.flip(torch.cumsum(torch.flip(dacum, [2]), dim=2), [2]) \
+        + tail[:, :, None]
+
+    def unchunk(t):
+        return t.reshape(Bt, nc * chunk, *t.shape[3:])[:, :S]
+
+    return (unchunk(dx), unchunk(dB), unchunk(dC), unchunk(da),
+            unchunk(ddt))

@@ -14,6 +14,14 @@ stream (chunk states, state passing, chunk scan) over float32 scratch
 that this wrapper allocates: the chunks' states (Bt, nc, H, P, N) and
 their cumulative decays (Bt, nc, H, q_pad).  ``LAUNCHES`` counts calls,
 one per call whatever the number of kernels.
+
+``ssd_scan_chunked_bwd`` (``csrc/ssd_scan_bwd.cu``) is the backward: from
+the forward's inputs and dy it returns dx, dB, dC in the inputs' dtype
+and da, ddt in float32, over float32 scratch that it allocates (the
+states entering and the gradients leaving each chunk, the chunks'
+cumulative decays, the heads' shares of dB and dC).  It accepts the
+forward's shapes and views and runs three kernels per call;
+``BWD_LAUNCHES`` counts calls.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 HEAD_DIMS = (16, 32, 64, 128)
 STATE_DIMS = (8, 16, 32, 64, 128)
 MAX_CHUNK = 1024
@@ -32,11 +41,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, BWD_LAUNCHES
+    LAUNCHES = BWD_LAUNCHES = 0
 
 
-_FN = None
+_FN = _BWD_FN = None
 
 
 def _fn():
@@ -54,6 +63,19 @@ def _fn():
     return fn
 
 
+def _bwd_fn():
+    """The backward's C entry point, loaded (and built) once."""
+    global _BWD_FN
+    if _BWD_FN is not None:
+        return _BWD_FN
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p] * 9)
+    fn.restype = ctypes.c_int
+    _BWD_FN = fn
+    return fn
+
+
 def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int, chunk: int):
     """Shapes of the bf16 path's float32 scratch: the chunks' states and
     their cumulative decays, each chunk padded to a multiple of ``TILE``
@@ -63,15 +85,8 @@ def scratch_shapes(Bt: int, S: int, H: int, P: int, N: int, chunk: int):
     return (Bt, nc, H, P, N), (Bt, nc, H, q_pad)
 
 
-def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
-    """x: (Bt, S, H, P); B, C: (Bt, S, N); a = dt * A, dt: (Bt, S, H).
-
-    x, B and C on one CUDA device in one dtype (float32 or bfloat16), P in
-    ``HEAD_DIMS``, N in ``STATE_DIMS``, 1 <= chunk <= ``MAX_CHUNK``; a and
-    dt float32.  Returns y (Bt, S, H, P) in x's dtype and, with
-    ``return_state``, also the final state (Bt, H, P, N) in float32.
-    """
-    caller = "ssd_scan_chunked"
+def _check(x, B, C, a, dt, chunk: int, caller: str) -> None:
+    """Raise ValueError for what the kernels do not take."""
     if x.dim() != 4 or B.dim() != 3 or C.dim() != 3:
         raise ValueError(f"{caller}: x must be 4-d and B, C 3-d, got "
                          f"{tuple(x.shape)}, {tuple(B.shape)}, "
@@ -114,6 +129,19 @@ def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
             raise ValueError(f"{caller}: bfloat16 {name} must start on 16 "
                              f"bytes and have strides of multiples of 8 "
                              f"elements (the kernels copy 16-byte pieces)")
+
+
+def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
+    """x: (Bt, S, H, P); B, C: (Bt, S, N); a = dt * A, dt: (Bt, S, H).
+
+    x, B and C on one CUDA device in one dtype (float32 or bfloat16), P in
+    ``HEAD_DIMS``, N in ``STATE_DIMS``, 1 <= chunk <= ``MAX_CHUNK``; a and
+    dt float32.  Returns y (Bt, S, H, P) in x's dtype and, with
+    ``return_state``, also the final state (Bt, H, P, N) in float32.
+    """
+    _check(x, B, C, a, dt, chunk, "ssd_scan_chunked")
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
     a, dt = a.contiguous(), dt.contiguous()
     y = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
     state = (torch.empty((Bt, H, P, N), dtype=torch.float32, device=x.device)
@@ -133,8 +161,65 @@ def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
                     None if states is None else states.data_ptr(),
                     None if acum is None else acum.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(f"{caller}: launch failed with CUDA error "
-                               f"{err}")
+            raise RuntimeError(f"ssd_scan_chunked: launch failed with CUDA "
+                               f"error {err}")
         global LAUNCHES
         LAUNCHES += 1
     return (y, state) if return_state else y
+
+
+def bwd_scratch_shapes(Bt: int, S: int, H: int, P: int, N: int,
+                       chunk: int) -> dict:
+    """Shapes of the backward's float32 scratch, by the C entry point's
+    argument names."""
+    nc = -(-S // chunk)
+    q_pad = -(-chunk // TILE) * TILE
+    return {"s_in": (Bt, nc, H, P, N), "d_out": (Bt, nc, H, P, N),
+            "acum": (Bt, nc, H, q_pad), "sd": (Bt, nc, H),
+            "db_h": (Bt, S, H, N), "dc_h": (Bt, S, H, N),
+            "dac": (Bt, S, H), "u": (Bt, S, H)}
+
+
+def ssd_scan_chunked_bwd(x, B, C, a, dt, dy, chunk: int):
+    """The backward of ``ssd_scan_chunked(x, B, C, a, dt, chunk)`` for
+    the output gradient ``dy`` (Bt, S, H, P), any strides, in x's dtype.
+
+    Takes the forward's inputs as it takes them (strided views included).
+    Returns (dx, dB, dC, da, ddt): fresh contiguous tensors, dx, dB and
+    dC in the dtypes of x, B and C, da and ddt float32.
+    """
+    caller = "ssd_scan_chunked_bwd"
+    _check(x, B, C, a, dt, chunk, caller)
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if tuple(dy.shape) != (Bt, S, H, P):
+        raise ValueError(f"{caller}: dy must be (Bt, S, H, P) = "
+                         f"{(Bt, S, H, P)}, got {tuple(dy.shape)}")
+    if dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"{caller}: dy must be {x.dtype} on {x.device}, "
+                         f"got {dy.dtype} on {dy.device}")
+    a, dt, dy = a.contiguous(), dt.contiguous(), dy.contiguous()
+    dev = x.device
+    dx = torch.empty((Bt, S, H, P), dtype=x.dtype, device=dev)
+    dB = torch.empty((Bt, S, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((Bt, S, N), dtype=x.dtype, device=dev)
+    da = torch.empty((Bt, S, H), dtype=torch.float32, device=dev)
+    ddt = torch.empty((Bt, S, H), dtype=torch.float32, device=dev)
+    if Bt * H * S:
+        scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
+                   for name, shape in bwd_scratch_shapes(
+                       Bt, S, H, P, N, chunk).items()}
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_fn()(x.data_ptr(), B.data_ptr(), C.data_ptr(),
+                        a.data_ptr(), dt.data_ptr(), dy.data_ptr(),
+                        dx.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                        da.data_ptr(), ddt.data_ptr(),
+                        _DTYPES[x.dtype], Bt, S, H, P, N, chunk,
+                        *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
+                        *(t.data_ptr() for t in scratch.values()), stream)
+        if err != 0:
+            raise RuntimeError(f"{caller}: launch failed with CUDA error "
+                               f"{err}")
+        global BWD_LAUNCHES
+        BWD_LAUNCHES += 1
+    return dx, dB, dC, da, ddt

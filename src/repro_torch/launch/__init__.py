@@ -1,1 +1,2 @@
-"""Drivers of the port: the real-model serving entry point."""
+"""Drivers of the port: the real-model serving entry point
+(``launch.serve``) and the trainer (``launch.train``)."""

@@ -8,3 +8,4 @@ from repro_torch.models.model import (  # noqa: F401
     cache_specs,
     init_cache,
 )
+from repro_torch.models.layers import kernels_allowed, no_kernels  # noqa: F401

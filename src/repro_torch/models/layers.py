@@ -9,20 +9,51 @@ Plain functions on tensors.  Attention comes in two plain versions:
 On a CUDA tensor ``chunked_attention`` launches the hand-written
 flash-attention kernel for every sequence length (the kernel masks the
 ragged tail itself) or raises: it never runs the plain versions on the
-card.  On the CPU it takes the reference's CPU branches.  The
-reference's ``kernels_allowed``/``no_kernels`` switch, which only its
-``loss`` uses, comes with the training slice.  Scores are taken in
-float32 whatever the input dtype, as the reference's
+card.  On the CPU it takes the reference's CPU branches.  Scores are
+taken in float32 whatever the input dtype, as the reference's
 ``preferred_element_type=jnp.float32`` einsums take them.
+
+``kernels_allowed``/``no_kernels`` keep the reference's names and its
+thread-local flag.  A CPU tensor takes the plain version whatever the
+flag; on a CUDA tensor inside ``no_kernels()``, ``chunked_attention``
+and ``models.ssm.ssm_apply`` raise, since the card has no plain path.
+The reference's ``loss`` enters ``no_kernels()`` because its Pallas
+kernels have no VJP; the port's ``loss`` does not: its SSD scan carries
+its own backward kernel and its flash attention raises under grad.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
 _NEG = -1e30
+
+_tls = threading.local()
+
+
+def kernels_allowed() -> bool:
+    return getattr(_tls, "kernels_ok", True)
+
+
+@contextlib.contextmanager
+def no_kernels():
+    prev = getattr(_tls, "kernels_ok", True)
+    _tls.kernels_ok = False
+    try:
+        yield
+    finally:
+        _tls.kernels_ok = prev
+
+
+def require_kernels(caller: str) -> None:
+    """Raise inside ``no_kernels()``: a CUDA tensor has only its kernel."""
+    if not kernels_allowed():
+        raise RuntimeError(f"{caller}: a CUDA tensor inside no_kernels(); "
+                           f"the card has no plain path")
 
 
 # --------------------------------------------------------------------------
@@ -147,6 +178,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     the KV chunks that are not fully masked.
     """
     if q.is_cuda:
+        require_kernels("chunked_attention")
         if q_offset:
             raise ValueError(f"chunked_attention: the flash-attention "
                              f"kernel takes no query offset, got "

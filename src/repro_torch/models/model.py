@@ -1,10 +1,11 @@
 """The model families (port of ``repro.models.model``): dense, moe, ssm,
 hybrid, encdec and vlm.
 
-``build_model(cfg)`` returns a :class:`Model` with
+``build_model(cfg, remat=True)`` returns a :class:`Model` with
 
   init(generator)                 -> params (an :class:`LM` module, or an
                                      :class:`EncDec` for the encdec family)
+  loss(params, batch)             -> (scalar loss, metrics dict)  [train]
   prefill(params, batch)          -> (last-position logits, cache)
   decode(params, cache, tokens)   -> (logits, cache)
 
@@ -36,7 +37,23 @@ layer runs causal self attention, cross attention over the encoder's
 output (unmasked, Sq != Sk) and an MLP.  The vlm family puts
 ``batch["patches"]`` (B, n_patches, d_model) in front of the token
 embeddings and runs the dense stack, so ``len`` and the positions count
-the patches.  ``loss`` and training are a later slice.
+the patches.
+
+``loss`` mirrors the reference's ``_loss_inner``: the full-sequence
+stack, the LM head over every position, cross entropy plus the 1e-4
+z-loss over the positions whose label is >= 0 (encdec's labels as they
+come, vlm's with -1 at the patch positions), plus 0.01 times the MoE
+layers' summed aux loss; metrics ``ce`` and, except for encdec, ``aux``.
+MoE layers take the scatter dispatch (``moe.moe_apply``) there, as the
+reference's training does.  With ``remat`` each layer's body (an encoder
+or decoder layer, a transformer layer, or a Mamba2 layer with the
+hybrid's shared block where it runs) is recomputed in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) wherever the reference wraps
+it in ``jax.checkpoint``.  Unlike the reference's, the port's ``loss``
+does not enter ``layers.no_kernels()``: on the card the SSD scan runs
+its kernel with the hand-written backward, and flash attention raises
+under grad (its backward is not written yet).  Gradients come from
+autograd over the module's parameters (``train.train_step``).
 """
 from __future__ import annotations
 
@@ -44,6 +61,7 @@ from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -135,6 +153,8 @@ class EncDec(nn.Module):
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[[torch.Generator], nn.Module]
+    loss: Callable[[nn.Module, Batch],
+                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     prefill: Callable[[nn.Module, Batch], Tuple[torch.Tensor, Dict]]
     decode: Callable[[nn.Module, Dict, torch.Tensor],
                      Tuple[torch.Tensor, Dict]]
@@ -410,11 +430,101 @@ def _lm_head(cfg, params: LM, h):
     return logits
 
 
+def _xent(logits, labels, mask):
+    """CE + z-loss; labels (B, S) int, mask (B, S) float32.  Returns
+    (CE + 1e-4 z-loss, CE), each averaged over max(sum(mask), 1)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    ce = (lse - ll) * mask
+    z = torch.square(lse) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return ce.sum() / denom + 1e-4 * z.sum() / denom, ce.sum() / denom
+
+
+# ---------------------------------------------------------------------------
+# training stacks: one body per layer, recomputed in backward with remat
+# ---------------------------------------------------------------------------
+
+def _run(body, remat: bool, *args):
+    if remat:
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return body(*args)
+
+
+def _stack_train(cfg, params: LM, h, remat: bool):
+    """The decoder-only stacks over a full sequence for ``loss``.
+    Returns (h, the MoE layers' aux summed, float32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in MAMBA:
+        def body(h, lp, inv):
+            h = h + SSM.ssm_apply(cfg, lp.ssm, L.apply_norm(cfg, h, lp.ln1))
+            if inv >= 0:
+                sp = params.shared_block
+                y, _ = _attn_full(cfg, sp.attn, L.apply_norm(cfg, h, sp.ln1))
+                h = h + y
+                h = h + L.mlp_apply(cfg, sp.mlp, L.apply_norm(cfg, h, sp.ln2))
+            return h
+
+        for lp, inv in zip(params.layers, _inv_idx(cfg)):
+            h = _run(body, remat, h, lp, inv)
+        return h, aux
+
+    def body(h, lp):
+        y, _ = _attn_full(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1))
+        h = h + y
+        x = L.apply_norm(cfg, h, lp.ln2)
+        if cfg.family == "moe":
+            y, a = MOE.moe_apply(cfg, lp.moe, x)
+            return h + y, a
+        return h + L.mlp_apply(cfg, lp.mlp, x), torch.zeros_like(aux)
+
+    for lp in params.layers:
+        h, a = _run(body, remat, h, lp)
+        aux = aux + a
+    return h, aux
+
+
+def _encdec_train(cfg, params: EncDec, frames, tokens, remat: bool):
+    """Whisper's encoder and decoder over full sequences for ``loss``;
+    returns the decoder's last hidden states."""
+    KV, hd = cfg.n_kv_heads, cfg.head_dim_
+
+    def enc_body(h, lp):
+        y, _ = _attn_full(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1),
+                          causal=False, use_rope=False)
+        h = h + y
+        return h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
+
+    h = frames + params.enc_pos_emb[None, :frames.shape[1]]
+    for lp in params.enc_layers:
+        h = _run(enc_body, remat, h, lp)
+    enc_out = L.apply_norm(cfg, h, params.enc_ln_f)
+
+    def dec_body(h, enc_out, lp):
+        B = h.shape[0]
+        y, _ = _attn_full(cfg, lp.attn, L.apply_norm(cfg, h, lp.ln1),
+                          use_rope=False)
+        h = h + y
+        xk = (enc_out @ lp.xattn["wk"]).reshape(B, -1, KV, hd)
+        xv = (enc_out @ lp.xattn["wv"]).reshape(B, -1, KV, hd)
+        h = h + _attn_cross(cfg, lp.xattn, L.apply_norm(cfg, h, lp.lnx),
+                            xk, xv)
+        return h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
+
+    h = params.tok_emb[tokens.long()]
+    h = h + params.dec_pos_emb[None, :h.shape[1]]
+    for lp in params.layers:
+        h = _run(dec_body, remat, h, enc_out, lp)
+    return h
+
+
 # ---------------------------------------------------------------------------
 # build_model
 # ---------------------------------------------------------------------------
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, remat: bool = True) -> Model:
     require_ported(cfg)
     dt = getattr(torch, cfg.dtype)
     mamba = cfg.family in MAMBA
@@ -441,6 +551,27 @@ def build_model(cfg: ModelConfig) -> Model:
         if cfg.family == "vlm":
             h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
         return h
+
+    def loss(params: nn.Module, batch: Batch):
+        """(CE + 1e-4 z-loss + 0.01 aux, metrics) over ``batch``."""
+        if cfg.family == "encdec":
+            h = _encdec_train(cfg, params, batch["frames"].to(dt),
+                              batch["tokens"], remat)
+            labels = batch["labels"]
+            mask = (labels >= 0).float()
+            total, ce = _xent(_lm_head(cfg, params, h),
+                              torch.clamp(labels, min=0), mask)
+            return total, {"ce": ce}
+        h, aux = _stack_train(cfg, params, embed(params, batch), remat)
+        labels = batch["labels"]
+        if cfg.family == "vlm":   # the patch positions carry no labels
+            npat = batch["patches"].shape[1]
+            labels = torch.cat([labels.new_full((labels.shape[0], npat), -1),
+                                labels], dim=1)
+        mask = (labels >= 0).float()
+        total, ce = _xent(_lm_head(cfg, params, h),
+                          torch.clamp(labels, min=0), mask)
+        return total + 0.01 * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(params: nn.Module, batch: Batch):
@@ -489,7 +620,8 @@ def build_model(cfg: ModelConfig) -> Model:
         logits = _lm_head(cfg, params, h[:, -1:, :])[:, 0]
         return logits, dict(cache, len=pos + 1)
 
-    return Model(cfg=cfg, init=init, prefill=prefill, decode=decode)
+    return Model(cfg=cfg, init=init, loss=loss, prefill=prefill,
+                 decode=decode)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ of a group, slot-major (every token's first choice before any second
 choice), and tokens over capacity are dropped (their residual passes
 through).  ``moe_apply_einsum`` dispatches with one-hot einsums, the form
 the reference's serving runs in prefill and decode; ``moe_apply``
-scatters and gathers, the form its training runs (forward only here).
+scatters and gathers, the form its training runs (``model.loss``), and
+autograd differentiates it: the gate values through the sort, the
+tokens through the scatter and the gather, the aux loss through the
+router's probabilities.
 
 Top-k takes a stable descending sort, so ties go to the lower expert
 index, as ``jax.lax.top_k`` orders them.  ``_group_size`` halves from
@@ -131,7 +134,7 @@ def moe_apply_einsum(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter/gather dispatch (the training form, forward only): each
+    """Scatter/gather dispatch (the training form): each
     kept (token, choice) lands in slot ``expert * cap + pos``, dropped
     ones in one spare slot.  Returns (out, aux)."""
     B, S, D = x.shape

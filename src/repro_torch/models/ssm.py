@@ -5,8 +5,11 @@ Prefill uses the chunked dual form: within a chunk the recurrence is the
 quadratic "attention-like" form, across chunks a (B, H, P, N) state is
 carried.  On a CUDA tensor ``ssm_apply`` runs it in the hand-written SSD
 scan kernel at any sequence length, with or without the cache's final
-state, or raises: it never runs a plain version on the card.  On the CPU
-it takes the reference's ``ssd_chunked``.
+state, or raises: it never runs a plain version on the card.  Under
+autograd the kernel's gradient is the hand-written backward kernel
+(``kernels.ssd_scan.ops.SSDScan``).  On the CPU it takes the reference's
+``ssd_chunked``, and autograd differentiates it as the reference's
+``loss`` differentiates its jnp form.
 
 Decode is the O(1) recurrent update  h <- exp(dt*A) h + dt * B (x) x,
 plain PyTorch on every device, as in the reference.
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.layers import require_kernels
 
 
 class SSMCache(NamedTuple):
@@ -151,7 +155,7 @@ def ssd_chunked(x, B, C, dt, A_log, chunk: int):
 
 
 def ssm_apply(cfg, p, x, with_cache: bool = False):
-    """Full-sequence (prefill) Mamba2 block.  x: (B, S, D).
+    """Full-sequence (train/prefill) Mamba2 block.  x: (B, S, D).
 
     with_cache=True additionally returns the decode cache (rolling conv
     window tail + final SSD state) so prefill is a single pass.
@@ -168,6 +172,7 @@ def ssm_apply(cfg, p, x, with_cache: bool = False):
     xh = xs.reshape(*xs.shape[:-1], heads, P)
     if x.is_cuda:
         # the kernel, at any S; x, B and C go in as views of xBC
+        require_kernels("ssm_apply")
         out = ssd_scan(xh, Bm, Cm, dt, p["A_log"], cfg.ssd_chunk,
                        return_state=with_cache)
         y, state = out if with_cache else (out, None)

@@ -10,4 +10,6 @@ from repro_torch.train.optimizer import (  # noqa: F401
 from repro_torch.train.train_step import (  # noqa: F401
     init_train_state,
     make_train_step,
+    optimizer_view,
+    value_and_grad,
 )

@@ -134,10 +134,12 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def _leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+    # (np.ascontiguousarray makes a 0-d array 1-d: reshape it back)
     if dtype == "bfloat16":
         bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return bits.view(torch.bfloat16).reshape(arr.shape).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).reshape(
+        arr.shape).to(device)
 
 
 def restore(ckpt_dir: str | Path, step: int, like: Any):

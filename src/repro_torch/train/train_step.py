@@ -2,52 +2,150 @@
 gradient accumulation.
 
 Port of ``repro.train.train_step`` without its sharding arguments.  A
-model is any object with ``loss(params, batch) -> (loss, metrics)`` over
-a dict of parameter tensors; gradients come from
-``torch.func.grad_and_value``.
+model is any object with ``loss(params, batch) -> (loss, metrics)``.
+Gradients come from ``torch.autograd.grad`` over the parameters, so a
+loss may run ``torch.autograd.Function``s with kernels for backward and
+``torch.utils.checkpoint`` recomputation.  ``params`` is either
+
+  * a dict of tensors (the usage predictor): the optimizer sees it as it
+    is and the step returns a new dict; or
+  * a model's ``nn.Module`` (``models.model.LM`` or ``EncDec``): the
+    optimizer sees the reference's tree layout (``optimizer_view``:
+    ``layers`` stacked on a leading L axis, keys joined with ``/``, in
+    the order JAX flattens the tree), so weight decay applies to the
+    leaves the reference decays (a stacked per-layer vector is a matrix
+    there) and ``opt_state`` checkpoints in the reference's layout; the
+    step writes the new values into the module's parameters in place and
+    returns the module.  The stacking costs a copy of the weights and of
+    the gradients a step, but AdamW's element-wise chain then runs once
+    per stacked leaf instead of once per layer's tensor: a full-width
+    mamba2-370m step (B 8 x S 2048, H100) takes 13,878 kernels and
+    1.66 s this way, 54,979 and 2.03 s over the module's own parameters.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          adamw_init, adamw_update)
+
+SEP = "/"   # sorts below every character of a key, as JAX's key order
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested dict -> {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        key = prefix + k
+        if isinstance(v, dict):
+            out.update(flatten(v, key + SEP))
+        else:
+            out[key] = v
+    return out
+
+
+def nest(flat: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`flatten`."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *path, last = key.split(SEP)
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _is_model(params) -> bool:
+    return isinstance(params, nn.Module)
+
+
+def optimizer_view(params) -> Dict[str, torch.Tensor]:
+    """The flat dict of tensors AdamW updates: the dict itself, or a
+    model module's reference-layout tree, flattened."""
+    if _is_model(params):
+        from repro_torch.convert import model_tree
+        return flatten(model_tree(params))
+    return params
+
+
+def value_and_grad(model, params, batch):
+    """(loss, metrics, grads): the loss and its metrics detached, and the
+    gradients in the optimizer's layout (``optimizer_view``), each in its
+    parameter's dtype; a parameter the loss does not reach gets zeros."""
+    if _is_model(params):
+        named = dict(params.named_parameters())
+        arg = params
+        for p in named.values():
+            p.requires_grad_(True)
+    else:
+        named = {k: v.detach().requires_grad_(True)
+                 for k, v in params.items()}
+        arg = named
+    try:
+        with torch.enable_grad():
+            loss, metrics = model.loss(arg, batch)
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+    finally:
+        if _is_model(params):
+            for p in named.values():
+                p.requires_grad_(False)
+    grads = dict(zip(named, grads))
+    if _is_model(params):
+        from repro_torch.convert import model_tree
+        grads = flatten(model_tree(grads))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def _apply(params, new: Dict[str, torch.Tensor]):
+    """The step's new parameters: the dict, or written into the module."""
+    if _is_model(params):
+        from repro_torch.convert import load_model_tree
+        load_model_tree(params, nest(new))
+        return params
+    return new
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; ``metrics`` holds ``loss`` and ``grad_norm``
-    as 0-d tensors (nothing waits for the device).
+    (and the loss's own metrics without accumulation) as 0-d tensors
+    (nothing waits for the device).
 
     With ``accum_steps`` > 1 the batch's leading axis is split into that
     many microbatches, whose gradients are averaged in float32.
     """
-    grad_fn = torch.func.grad_and_value(model.loss, has_aux=True)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
         if accum_steps == 1:
-            grads, (loss, metrics) = grad_fn(params, batch)
+            loss, metrics, grads = value_and_grad(model, params, batch)
         else:
             micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
                                   + tuple(v.shape[1:]))
                      for k, v in batch.items()}
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for k, p in params.items()}
-            losses = []
+            grads, losses = None, []
             for i in range(accum_steps):
-                g, (loss_i, _) = grad_fn(params,
-                                         {k: v[i] for k, v in micro.items()})
+                loss_i, _, g = value_and_grad(
+                    model, params, {k: v[i] for k, v in micro.items()})
+                if grads is None:
+                    grads = {k: torch.zeros(t.shape, dtype=torch.float32,
+                                            device=t.device)
+                             for k, t in g.items()}
                 grads = {k: grads[k] + g[k].float() / accum_steps
                          for k in grads}
                 losses.append(loss_i)
             loss, metrics = torch.stack(losses).mean(), {}
-        params, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state,
-                                                params)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
-                                   **metrics}
+        new, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state,
+                                             optimizer_view(params))
+        return _apply(params, new), opt_state, {"loss": loss,
+                                                "grad_norm": gnorm,
+                                                **metrics}
 
     return train_step
 
@@ -55,4 +153,4 @@ def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1):
 def init_train_state(model, generator: torch.Generator, *,
                      device="cuda") -> Tuple[Any, AdamWState]:
     params = model.init(generator, device=device)
-    return params, adamw_init(params)
+    return params, adamw_init(optimizer_view(params))
