@@ -7,7 +7,8 @@ Phases, one line each (or a few):
 
   1. device: the card's name and power limit; build every CUDA kernel
      from this checkout's sources, timed, with each kernel's registers,
-     shared memory and spills as ptxas reports them.
+     shared memory and spills as ptxas reports them (the SSD backward,
+     the slowest source, builds while phases 2 to k run).
   2. kernels against plain: the flex_score pick kernel and its plain
      PyTorch version on the same CUDA tensors, bit for bit, at
      N in {4000, 4097, 100000} (random, tied, all-infeasible, cap < 1 and
@@ -215,10 +216,13 @@ Training (the ssm family), phase v after phase k and phase w after u:
      x, B and C as views of one xBC tensor, as ssm_apply passes them) and
      zamba2-7b's (B = 1, S = 2048, H = 112, P = 64, N = 64), Q = 256, in
      f32 (within 1e-4 of max(1, each gradient's largest plain magnitude))
-     and bf16 (2e-2), each case twice and bit-equal; times at both
-     training shapes (eager, and replayed from a CUDA graph) beside the
-     bound, the plain version (autograd through ``ssd_three_pass``, its
-     backward alone) and ``ssd_scan_bwd_ref``.
+     and bf16 (2e-2; its float32 outputs da and ddt 2e-4), each case
+     twice and bit-equal; times at both training shapes (eager, and
+     replayed from a CUDA graph) beside the bound, the earlier (float32
+     CUDA-core) design's times, the plain version (autograd through
+     ``ssd_three_pass``, its backward alone) and ``ssd_scan_bwd_ref``; a
+     profiled call at each shape, each of the bf16 path's four kernels'
+     time, and the call's rate over the bound's operations.
   w. ``launch.train.train`` on mamba2-370m at its published widths (48
      layers, d_model 1024), bf16, random weights, batch 8 x 2048 tokens,
      8 steps with per-layer recomputation and checkpoints every 4, then a
@@ -227,8 +231,9 @@ Training (the ssm family), phase v after phase k and phase w after u:
      uninterrupted run's (bit-equality logged), 48 backward and 96
      forward SSD launches a step; ms per step (CUDA events), tokens/s,
      peak memory, a profiled step (kernels, idle share, the backward's
-     share); the smoke config in f32 on the card against the CPU port
-     from the same weights, three steps' losses and gradients; and a
+     share and each of its kernels'); the smoke config in f32 on the
+     card against the CPU port from the same weights, three steps'
+     losses and gradients; and a
      dense smoke config's loss under grad on the card raising the flash
      kernel's missing-backward error.
 
@@ -245,11 +250,14 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+from torch.autograd import DeviceType
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1130,6 +1138,27 @@ def dedup_queue(dev, shapes: int = 64) -> None:
             raise AssertionError(f"dedup queue: node {name} differs")
 
 
+class _Kernel(NamedTuple):
+    key: str
+    count: int
+    self_device_time_total: float   # us, as in key_averages
+
+
+def _device_kernels(prof) -> list:
+    """The profiled run's device activity (kernels, copies, fills) by
+    name, summed straight from the raw events: the same sums as the CUDA
+    rows of ``prof.key_averages()``, which first builds a Python object
+    and a call tree for every host and device event, and so takes most
+    of phase f's time (330,000 kernels)."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            count, ns = totals.get(e.name(), (0, 0))
+            totals[e.name()] = (count + 1, ns + e.duration_ns())
+    return [_Kernel(name, count, ns / 1e3)
+            for name, (count, ns) in totals.items()]
+
+
 def profile_wavefront(dev) -> None:
     """Phase f: one full-width queue of distinct tasks, untraced on the
     host clock, then under torch.profiler."""
@@ -1165,8 +1194,7 @@ def profile_wavefront(dev) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         admit()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     log(f"[wprofile] flex-f wavefront Q={q} N={n}: {wall_ms:.1f} ms "
@@ -1255,8 +1283,7 @@ def profile_decisions(dev, decisions: int = 512) -> int:
             for _ in range(reps):
                 admit()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")]
+        kernels = _device_kernels(prof)
         per = decisions * reps
         busy_us = sum(e.self_device_time_total for e in kernels) / per
         count = sum(e.count for e in kernels) / per
@@ -2149,7 +2176,20 @@ SSD_BWD_FULL = (("mamba2-370m", 8, 2048, 32, 64, 128),
 # rounding step is 2^-8 of the value); held to the kernels' 2e-2 of the
 # same scale.
 SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bfloat16's float32 outputs da and ddt, held tighter: every product the
+# kernels feed from float32 values takes them as hi + lo bf16 pairs (about
+# 16 bits), so these sums stay near float32's error.  Phase v's readings
+# reach 6.06e-5 of the same scale; with the lo halves cut out (plain bf16
+# products; scripts/ssd_bwd_lo_cut.py) seven of the twelve bf16 cases
+# read 2.3e-4 to 1.85e-3 (NVIDIA H100 80GB HBM3, 700.00 W).
+SSD_BWD_HILO_TOL = 2e-4
 GRAD_NAMES = ("dx", "dB", "dC", "da", "ddt")
+# The earlier design's times at the training shapes (float32 CUDA cores:
+# a per-(b, h) state walk, per-(tile, chunk, head) rows with G and dyx
+# recomputed on both sides, per-head dB and dC to scratch), eager, from
+# PERF.md's kernel table: its run F22c (NVIDIA H100 80GB HBM3, 700.00 W);
+# logged beside this run's times.
+SSD_BWD_EARLIER_MS = {"mamba2-370m": 14.4352, "zamba2-7b": 5.4847}
 
 
 def _ssd_bwd_inputs(b, s, h, p, n, gen, dev, dtype):
@@ -2160,23 +2200,29 @@ def _ssd_bwd_inputs(b, s, h, p, n, gen, dev, dtype):
     return x, B, C, a, dt, dy
 
 
-def _ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
-                   elt: int):
-    """(bound ms, what bounds it) of one backward call.  Operations, at
-    the tensor-core peak for the inputs' type (as ``_ssd_bound``): per
-    chunk of r rows the causal half of C B^T, r (r + 1) N, once for all
-    heads, and per head the causal halves of dy x^T and of the products
-    for dx, dB and dC, r (r + 1) (2 P + 2 N), and five (P, N) products
-    over the rows (the states entering and the gradients leaving the
-    chunk, dy^T S, D B and x^T D), 10 r P N.  Bytes, at 3.35 TB/s: x, dy,
-    B, C read and dx, dB, dC written once in the input dtype, a and dt
-    read and da and ddt written once in float32."""
+def _ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """The operations one backward call needs: per chunk of r rows the
+    causal half of C B^T, r (r + 1) N, once for all heads, and per head
+    the causal halves of dy x^T and of the products for dx, dB and dC, r
+    (r + 1) (2 P + 2 N), and five (P, N) products over the rows (the
+    states entering and the gradients leaving the chunk, dy^T S, D B and
+    x^T D), 10 r P N."""
     shared = per_head = 0
     for c0 in range(0, s, q):
         r = min(q, s - c0)
         shared += r * (r + 1) * n
         per_head += r * (r + 1) * (2 * p + 2 * n) + 10 * r * p * n
-    flops = b * shared + b * h * per_head
+    return b * shared + b * h * per_head
+
+
+def _ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
+                   elt: int):
+    """(bound ms, what bounds it) of one backward call.  Operations
+    (``_ssd_bwd_flops``), at the tensor-core peak for the inputs' type (as
+    ``_ssd_bound``).  Bytes, at 3.35 TB/s: x, dy, B, C read and dx, dB, dC
+    written once in the input dtype, a and dt read and da and ddt written
+    once in float32."""
+    flops = _ssd_bwd_flops(b, s, h, p, n, q)
     n_bytes = (3 * b * s * h * p + 4 * b * s * n) * elt + 4 * b * s * h * 4
     by_ops = flops / _peak_flops(elt) * 1e3
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -2184,9 +2230,26 @@ def _ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int,
                                    else "bytes")
 
 
-def _ssd_bwd_check(name: str, got, want, tol: float, worst: dict) -> None:
+def _ssd_bwd_kernels(args, q: int) -> dict:
+    """One profiled call of the backward: device ms by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launcher = importlib.import_module("repro_torch.kernels.ssd_scan"
+                                       ".ssd_scan")
+    launcher.ssd_scan_chunked_bwd(*args, q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        launcher.ssd_scan_chunked_bwd(*args, q)
+        torch.cuda.synchronize()
+    return {name: ms for name, (_, ms) in _port_kernel_ms(
+        _device_kernels(prof), PORT_KERNELS["ssd_scan_bwd"]).items()}
+
+
+def _ssd_bwd_check(name: str, got, want, dtype, worst: dict) -> None:
     msgs = []
     for what, g, w in zip(GRAD_NAMES, got, want):
+        tol = (SSD_BWD_HILO_TOL if dtype == torch.bfloat16
+               and what in ("da", "ddt") else SSD_BWD_TOL[dtype])
         scale = max(float(w.abs().max()), 1.0)
         diff = float((g.float() - w).abs().max())
         worst[g.dtype] = max(worst[g.dtype], diff)
@@ -2197,7 +2260,9 @@ def _ssd_bwd_check(name: str, got, want, tol: float, worst: dict) -> None:
                                  f"{tol:.3g}")
         msgs.append(f"{what} {diff / scale:.2e}")
     log(f"[ssd_bwd] {name}: " + ", ".join(msgs) + f" of max(1, max "
-        f"|plain|) (tolerance {tol:.3g})")
+        f"|plain|) (tolerance {SSD_BWD_TOL[dtype]:.3g}"
+        + (f", da and ddt {SSD_BWD_HILO_TOL:.3g})" if dtype == torch.bfloat16
+           else ")"))
 
 
 def ssd_bwd_vs_plain(dev) -> dict:
@@ -2228,7 +2293,7 @@ def ssd_bwd_vs_plain(dev) -> dict:
                                      f"between two calls")
         dtype = args[0].dtype
         _ssd_bwd_check(f"{label} {str(dtype)[6:]}", got,
-                       ssd_scan_bwd_ref(*args, q), SSD_BWD_TOL[dtype], worst)
+                       ssd_scan_bwd_ref(*args, q), dtype, worst)
 
     for label, b, s, h, p, n, q in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2273,10 +2338,19 @@ def ssd_bwd_vs_plain(dev) -> dict:
         timed[name] = (ms, plain_ms, bound_ms, bound_by)
         log(f"[ssd_bwd] {name} B={b} H={h} P={p} N={n} S={s} Q={SSD_CHUNK}"
             f" bf16: kernel {ms:.4f} ms eager (graph replay "
-            f"{graph_ms:.4f} ms), plain (autograd through ssd_three_pass, "
-            f"backward alone) {plain_ms:.4f} ms, ssd_scan_bwd_ref "
-            f"{ref_ms:.4f} ms, library: none; bound {bound_ms:.4f} ms "
-            f"({bound_by}), {bound_ms / ms:.4f} of it")
+            f"{graph_ms:.4f} ms; the earlier design "
+            f"{SSD_BWD_EARLIER_MS[name]:.4f} ms eager in run F22c), plain "
+            f"(autograd through ssd_three_pass, backward alone) "
+            f"{plain_ms:.4f} ms, ssd_scan_bwd_ref {ref_ms:.4f} ms, library: "
+            f"none; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f}"
+            f" of it")
+        parts = _ssd_bwd_kernels(args, SSD_CHUNK)
+        rate = _ssd_bwd_flops(b, s, h, p, n, SSD_CHUNK) / (ms * 1e-3) / 1e12
+        log(f"[ssd_bwd] {name} profiled call: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+            + f"; eager, the call does the bound's operations at {rate:.1f}"
+            f" TFLOP/s, {rate * 1e12 / BF16_FLOPS:.4f} of the dense bf16 "
+            f"peak")
         del args
         gc.collect()
         torch.cuda.empty_cache()
@@ -2690,11 +2764,13 @@ def _smoke_against_cpu(dev, arch: str) -> None:
         raise AssertionError(f"{small.name}: card and CPU differ by {err}")
 
 
-# Kernel names of the port's prefill kernels in a profiler trace.
+# Kernel names of the port's prefill kernels, and of the bf16 SSD
+# backward's, in a profiler trace.
 PORT_KERNELS = {"flash_attention": ("flash_fwd_",),
                 "ssd_scan": ("chunk_state", "state_pass", "chunk_scan",
                              "ssd_fwd"),
-                "ssd_scan_bwd": ("state_bwd", "chunk_bwd", "finish")}
+                "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_pass",
+                                 "ssd_bwd_chunk", "ssd_bwd_finish")}
 
 
 def profile_serving(dev, cfg=None) -> None:
@@ -2737,8 +2813,7 @@ def _profile(cfg, name: str, fn) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         log(f"[sprofile] {name}: {wall_ms:.2f} ms untraced; device time "
@@ -2751,8 +2826,8 @@ def _profile(cfg, name: str, fn) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"[sprofile]   {e.key[:60]}: {e.count} calls, "
             f"{e.self_device_time_total / 1e3:.3f} ms")
-    # The port's own kernels: flash attention, and the SSD scan's three
-    # passes together.
+    # The port's own kernels: flash attention, the SSD scan's passes and
+    # its backward's, each group together and each kernel.
     for port, names in PORT_KERNELS.items():
         mine = [e for e in kernels if any(n in e.key for n in names)]
         if mine:
@@ -2760,6 +2835,22 @@ def _profile(cfg, name: str, fn) -> None:
             log(f"[sprofile]   {port} (port): {sum(e.count for e in mine)}"
                 f" kernels, {ms:.3f} ms, {ms / busy_ms:.4f} of the "
                 f"device time")
+        if len(names) > 1:
+            for name, (count, ms) in _port_kernel_ms(mine, names).items():
+                log(f"[sprofile]     {name}: {count} kernels, {ms:.3f} ms, "
+                    f"{ms / busy_ms:.4f} of the device time")
+
+
+def _port_kernel_ms(events, names) -> dict:
+    """name -> (launches, device ms) of the profiled CUDA ``events`` whose
+    kernel name holds it, for each of ``names`` that ran."""
+    out = {}
+    for name in names:
+        each = [e for e in events if name in e.key]
+        if each:
+            out[name] = (sum(e.count for e in each),
+                         sum(e.self_device_time_total for e in each) / 1e3)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3468,6 +3559,21 @@ def train_end_to_end(dev) -> int:
     return bwd + bwd_resumed
 
 
+def _log_build(logs: dict, t0: float) -> None:
+    """The built kernels, the time since t0, and each kernel function's
+    registers, shared memory and spills as ptxas reports them."""
+    log(f"[device] built {sorted(logs)} in {time.perf_counter() - t0:.2f} "
+        f"s")
+    for name, text in logs.items():
+        entry = ""
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "smem" in line or (
+                    "spill" in line and " 0 bytes spill stores" not in line):
+                log(f"[device]   {name}: {entry}: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3488,17 +3594,14 @@ def main() -> int:
         f"{torch.version.cuda}")
     log(f"[device] nvidia-smi: {card}")
     t0 = time.perf_counter()
-    build_logs = _build.build_all()
-    log(f"[device] built {sorted(build_logs)} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for name, text in build_logs.items():
-        entry = ""
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "'" in line else line.strip()
-            elif "registers" in line or "smem" in line or (
-                    "spill" in line and " 0 bytes spill stores" not in line):
-                log(f"[device]   {name}: {entry}: {line.strip()}")
+    # The SSD backward, the slowest source, builds while phases 2-k run:
+    # phase v is the first to launch it.
+    late, late_logs = ["ssd_scan_bwd"], {}
+    late_build = threading.Thread(
+        target=lambda: late_logs.update(_build.build_all(late)))
+    late_build.start()
+    _log_build(_build.build_all([n for n in _build.sources()
+                                 if n not in late]), t0)
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -3510,8 +3613,12 @@ def main() -> int:
     kernels = [pick, timed("2 (queue kernel)", queue_kernel_vs_plain, pick),
                *timed("a", batch_kernels_vs_plain),
                timed("g", flash_vs_plain),
-               timed("k", ssd_vs_plain),
-               timed("v", ssd_bwd_vs_plain)]
+               timed("k", ssd_vs_plain)]
+    late_build.join()
+    if set(late_logs) != set(late):
+        raise RuntimeError(f"building {late} failed (its error is above)")
+    _log_build(late_logs, t0)
+    kernels.append(timed("v", ssd_bwd_vs_plain))
     launches, ts, res_seq, seq_rate = timed("3", slice_end_to_end)
     launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
                                               res_seq)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` under ``repro_torch/kernels`` compiles with nvcc
 into a shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go to ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  ``build_all`` starts one nvcc per
-source, all at once.  A failed build raises with nvcc's output.
+named by a hash of the source, its headers and the flags, so an edited
+source or header builds anew and an unchanged one is reused.
+``build_all`` starts one nvcc per source, all at once.  A failed build
+raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -46,9 +47,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of the source, the headers
+    beside it (``csrc/*.cuh``) and the flags."""
     src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -180,3 +180,165 @@ def ssd_scan_bwd_ref(x, B, C, a, dt, dy, chunk: int):
 
     return (unchunk(dx), unchunk(dB), unchunk(dC), unchunk(da),
             unchunk(ddt))
+
+
+def split_hi_lo(v, on: bool = True):
+    """A float32 operand as the bf16 kernels feed it to the tensor cores:
+    the pair (hi, lo) of bf16 values (as float32) whose sum keeps about 16
+    bits of ``v``; ``(v,)`` when ``on`` is false."""
+    if not on:
+        return (v,)
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _mm(eq, comp, other, hilo: bool):
+    """``einsum(eq, comp, other)`` with the computed operand ``comp`` split
+    into hi + lo when ``hilo``: one product each, summed in float32."""
+    out = None
+    for part in split_hi_lo(comp, hilo):
+        r = torch.einsum(eq, part, other)
+        out = r if out is None else out + r
+    return out
+
+
+def ssd_scan_bwd_split(x, B, C, a, dt, dy, chunk: int, heads_per_group: int,
+                       *, tile: int = 64, hilo: bool = False):
+    """``ssd_scan_bwd_ref``'s gradients by the bf16 CUDA path's split, in
+    plain PyTorch (for the tests): chunks of ``chunk`` rows padded to
+    ``tile``-row tiles, then
+
+      1. each chunk's local state (w (.) x)^T B and local gradient
+         (exp(acum) (.) dy)^T C;
+      2. a backward pass over the chunks for D_c and a forward one for S_c,
+         and <D_c, S_c>;
+      3. per key tile j and group of ``heads_per_group`` heads: the tile
+         against the boundary states, then each query tile i >= j: G =
+         C_i B_j^T once per pair and group, each head's dyx, M, W and R; dx,
+         ddt and dacum's column and state terms of the tile's rows, dB's
+         share summed over the group's heads, and the pair's shares of dC
+         (R summed over the group's heads first) and of dacum's row part;
+      4. the sums over groups and pairs, and da by a reverse sum.
+
+    With ``hilo`` each product of a computed float32 operand (w x, exp(acum)
+    dy, S_c, D_c, W, the head sums of R) takes it as a hi + lo bf16 pair
+    (``split_hi_lo``), as the tensor cores take it; the other operand
+    should then be bf16-valued, as the kernels' inputs are.
+
+    x, dy: (Bt, S, H, P); B, C: (Bt, S, N); a, dt: (Bt, S, H).  Returns
+    (dx, dB, dC, da, ddt), float32, of the inputs' shapes.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    gh = heads_per_group
+    G = H // gh
+    nc = -(-S // chunk)
+    q_pad = -(-chunk // tile) * tile
+    nt = q_pad // tile
+    dev = x.device
+    F = torch.nn.functional
+
+    def chunks(t):   # (Bt, S, ...) -> (Bt, nc, q_pad, ...), zero-padded
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, nc * chunk - S))
+        t = t.reshape(Bt, nc, chunk, *t.shape[2:])
+        return F.pad(t, (0, 0) * (t.dim() - 3) + (0, q_pad - chunk))
+
+    xc, Bc, Cc, dyc, ac, dtc = map(chunks, (x, B, C, dy, a, dt))
+    acum = torch.cumsum(ac, dim=2)                        # (Bt, nc, q, H)
+    last = acum[:, :, -1]                                 # (Bt, nc, H)
+    e = torch.exp(last[:, :, None] - acum)
+    w = e * dtc
+
+    # 1. the chunks' local states and local state gradients
+    sloc = _mm("bcshp,bcsn->bchpn", w[..., None] * xc, Bc, hilo)
+    dloc = _mm("bclhp,bcln->bchpn", torch.exp(acum)[..., None] * dyc, Cc,
+               hilo)
+    # 2. the passes: D_c backward, S_c forward
+    s_in = torch.zeros((Bt, nc, H, P, N), dtype=torch.float32, device=dev)
+    d_out = torch.zeros_like(s_in)
+    state = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=dev)
+    grad = torch.zeros_like(state)
+    for c in reversed(range(nc)):
+        d_out[:, c] = grad
+        grad = torch.exp(last[:, c])[..., None, None] * grad + dloc[:, c]
+    for c in range(nc):
+        s_in[:, c] = state
+        state = torch.exp(last[:, c])[..., None, None] * state + sloc[:, c]
+    sd = (d_out * s_in).sum(dim=(-2, -1))                 # (Bt, nc, H)
+
+    # 3. each key tile and head group
+    dx = torch.zeros_like(xc)
+    ddt, u, dac = (torch.zeros_like(dtc) for _ in range(3))
+    db_part = torch.zeros((Bt, nc, q_pad, G, N), dtype=torch.float32,
+                          device=dev)
+    dc_part = torch.zeros((Bt, nc, G, nt, nt, tile, N), dtype=torch.float32,
+                          device=dev)                     # [.., i, j, l, n]
+    rowpart = torch.zeros((Bt, nc, H, nt, nt, tile), dtype=torch.float32,
+                          device=dev)                     # [.., i, j, l]
+    eye = torch.eye(tile, dtype=torch.bool, device=dev)
+    causal = torch.ones((tile, tile), dtype=torch.bool, device=dev).triu()
+    for jt in range(nt):
+        sj = slice(jt * tile, (jt + 1) * tile)
+        Bj, Cj = Bc[:, :, sj], Cc[:, :, sj]
+        for grp in range(G):
+            hs = slice(grp * gh, (grp + 1) * gh)
+            xj, dyj = xc[:, :, sj, hs], dyc[:, :, sj, hs]
+            acj, dtj = acum[:, :, sj, hs], dtc[:, :, sj, hs]
+            # the boundary states: D_c (keys), S_c (queries)
+            V = _mm("bchpn,bcsn->bcshp", d_out[:, :, hs], Bj, hilo)
+            dxj = w[:, :, sj, hs, None] * V
+            xv = (xj * V).sum(dim=-1)
+            XD = _mm("bchpn,bcshp->bcshn", d_out[:, :, hs], xj, hilo)
+            dbj = (w[:, :, sj, hs, None] * XD).sum(dim=3)
+            eT = torch.exp(acj)[..., None] * _mm(
+                "bchpn,bclhp->bclhn", s_in[:, :, hs], dyj, hilo)
+            dc_part[:, :, grp, jt, jt] = eT.sum(dim=3)
+            di = (eT * Cj[:, :, :, None]).sum(dim=-1)
+            colE = torch.zeros_like(acj)
+            colOff = torch.zeros_like(acj)
+            for it in range(jt, nt):
+                si = slice(it * tile, (it + 1) * tile)
+                Ci, dyi, aci = Cc[:, :, si], dyc[:, :, si, hs], acum[:, :, si,
+                                                                   hs]
+                Gt = torch.einsum("bcsn,bcln->bcsl", Bj, Ci)[..., None]
+                xy = torch.einsum("bcshp,bclhp->bcslh", xj, dyi)
+                diff = aci[:, :, None] - acj[:, :, :, None]   # (.., s, l, h)
+                if it == jt:   # masked before the exp
+                    diff = torch.where(causal[None, None, :, :, None], diff,
+                                       -torch.inf)
+                M = torch.exp(diff)
+                dts = dtj[:, :, :, None]                      # dt_s
+                E = Gt * M * xy
+                dxj = dxj + _mm("bcslh,bclhp->bcshp", Gt * M * dts, dyi, hilo)
+                Rsum = (xy * M * dts).sum(dim=-1)
+                dbj = dbj + _mm("bcsl,bcln->bcsn", Rsum, Ci, hilo)
+                dc_part[:, :, grp, it, jt] += _mm("bcsl,bcsn->bcln", Rsum, Bj,
+                                                  hilo)
+                Eoff = E.masked_fill(eye[None, None, :, :, None], 0.0) \
+                    if it == jt else E
+                colE = colE + E.sum(dim=3)
+                colOff = colOff + Eoff.sum(dim=3)
+                rowpart[:, :, hs, it, jt] = (Eoff * dts).sum(dim=2).transpose(
+                    2, 3)
+            dx[:, :, sj, hs] = dxj
+            ddt[:, :, sj, hs] = colE + e[:, :, sj, hs] * xv
+            u[:, :, sj, hs] = w[:, :, sj, hs] * xv
+            dac[:, :, sj, hs] = di - (dtj * colOff + u[:, :, sj, hs])
+            db_part[:, :, sj, grp] = dbj
+
+    # 4. the sums over groups and pairs, and da
+    dB = db_part.sum(dim=3)
+    dC = torch.zeros_like(Bc)
+    for it in range(nt):
+        rows = slice(it * tile, (it + 1) * tile)
+        dC[:, :, rows] = dc_part[:, :, :, it, :it + 1].sum(dim=(2, 3))
+        dac[:, :, rows] += rowpart[:, :, :, it, :it + 1].sum(dim=3).transpose(
+            2, 3)
+    tail = torch.exp(last) * sd + u.sum(dim=2)            # (Bt, nc, H)
+    da = torch.flip(torch.cumsum(torch.flip(dac, [2]), dim=2), [2]) \
+        + tail[:, :, None]
+
+    def unchunk(t):
+        return t[:, :, :chunk].reshape(Bt, nc * chunk, *t.shape[3:])[:, :S]
+
+    return tuple(map(unchunk, (dx, dB, dC, da, ddt)))

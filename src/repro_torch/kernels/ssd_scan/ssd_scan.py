@@ -17,11 +17,13 @@ one per call whatever the number of kernels.
 
 ``ssd_scan_chunked_bwd`` (``csrc/ssd_scan_bwd.cu``) is the backward: from
 the forward's inputs and dy it returns dx, dB, dC in the inputs' dtype
-and da, ddt in float32, over float32 scratch that it allocates (the
-states entering and the gradients leaving each chunk, the chunks'
-cumulative decays, the heads' shares of dB and dC).  It accepts the
-forward's shapes and views and runs three kernels per call;
-``BWD_LAUNCHES`` counts calls.
+and da, ddt in float32, over scratch that it allocates
+(``bwd_scratch_shapes``: the states entering and the gradients leaving
+each chunk, the chunks' cumulative decays, and the shares of dB, dC and
+dacum that blocks hand to the last kernel).  It accepts the forward's
+shapes and views; float32 runs three CUDA-core kernels per call, bfloat16
+four chunk-parallel tensor-core kernels with the heads in groups of
+``bwd_heads_per_block``.  ``BWD_LAUNCHES`` counts calls.
 """
 from __future__ import annotations
 
@@ -69,8 +71,10 @@ def _bwd_fn():
     if _BWD_FN is not None:
         return _BWD_FN
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p] * 9)
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 7
+                   + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _BWD_FN = fn
     return fn
@@ -168,16 +172,40 @@ def ssd_scan_chunked(x, B, C, a, dt, chunk: int, *, return_state=False):
     return (y, state) if return_state else y
 
 
+def bwd_heads_per_block(H: int, P: int) -> int:
+    """Heads per block of the bf16 backward's key-tile kernel: 4 where
+    they fit the registers (P <= 64) and divide H, else 1 (no instance for
+    2, which keeps the kernel's build short)."""
+    return 4 if P <= 64 and H % 4 == 0 else 1
+
+
 def bwd_scratch_shapes(Bt: int, S: int, H: int, P: int, N: int,
-                       chunk: int) -> dict:
-    """Shapes of the backward's float32 scratch, by the C entry point's
-    argument names."""
+                       chunk: int, dtype) -> dict:
+    """The backward's scratch, by the C entry point's names in its order:
+    name -> (shape, dtype).  ``dtype`` is the inputs'."""
     nc = -(-S // chunk)
     q_pad = -(-chunk // TILE) * TILE
-    return {"s_in": (Bt, nc, H, P, N), "d_out": (Bt, nc, H, P, N),
-            "acum": (Bt, nc, H, q_pad), "sd": (Bt, nc, H),
-            "db_h": (Bt, S, H, N), "dc_h": (Bt, S, H, N),
-            "dac": (Bt, S, H), "u": (Bt, S, H)}
+    f32 = torch.float32
+    if dtype == torch.float32:
+        return {"s_in": ((Bt, nc, H, P, N), f32),
+                "d_out": ((Bt, nc, H, P, N), f32),
+                "acum": ((Bt, nc, H, q_pad), f32), "sd": ((Bt, nc, H), f32),
+                "db_h": ((Bt, S, H, N), f32), "dc_h": ((Bt, S, H, N), f32),
+                "dac": ((Bt, S, H), f32), "u": ((Bt, S, H), f32)}
+    nt = q_pad // TILE
+    n_pairs = nt * (nt + 1) // 2
+    G = H // bwd_heads_per_block(H, P)
+    n_sd = -(-P * N // 2048)     # the chunk pass's tiles of a state
+    return {"sloc": ((Bt, nc, H, P, N), f32),
+            "dloc": ((Bt, nc, H, P, N), f32),
+            "acum": ((Bt, nc, H, q_pad), f32),
+            "s_hl": ((Bt, nc, H, 2, P, N), torch.bfloat16),
+            "d_hl": ((Bt, nc, H, 2, P, N), torch.bfloat16),
+            "sd": ((Bt, nc, H, n_sd), f32),
+            "db_part": ((Bt, S, G, N), f32),
+            "dc_part": ((Bt, nc, G, n_pairs, TILE, N), f32),
+            "rowpart": ((Bt, nc, H, n_pairs, TILE), f32),
+            "dac": ((Bt, S, H), f32), "u": ((Bt, S, H), f32)}
 
 
 def ssd_scan_chunked_bwd(x, B, C, a, dt, dy, chunk: int):
@@ -206,17 +234,20 @@ def ssd_scan_chunked_bwd(x, B, C, a, dt, dy, chunk: int):
     da = torch.empty((Bt, S, H), dtype=torch.float32, device=dev)
     ddt = torch.empty((Bt, S, H), dtype=torch.float32, device=dev)
     if Bt * H * S:
-        scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
-                   for name, shape in bwd_scratch_shapes(
-                       Bt, S, H, P, N, chunk).items()}
+        scratch = [torch.empty(shape, dtype=kind, device=dev)
+                   for shape, kind in bwd_scratch_shapes(
+                       Bt, S, H, P, N, chunk, x.dtype).values()]
+        ptrs = (ctypes.c_void_p * len(scratch))(
+            *(t.data_ptr() for t in scratch))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _bwd_fn()(x.data_ptr(), B.data_ptr(), C.data_ptr(),
                         a.data_ptr(), dt.data_ptr(), dy.data_ptr(),
                         dx.data_ptr(), dB.data_ptr(), dC.data_ptr(),
                         da.data_ptr(), ddt.data_ptr(),
                         _DTYPES[x.dtype], Bt, S, H, P, N, chunk,
+                        bwd_heads_per_block(H, P),
                         *x.stride()[:3], *B.stride()[:2], *C.stride()[:2],
-                        *(t.data_ptr() for t in scratch.values()), stream)
+                        ptrs, len(scratch), stream)
         if err != 0:
             raise RuntimeError(f"{caller}: launch failed with CUDA error "
                                f"{err}")

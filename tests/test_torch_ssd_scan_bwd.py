@@ -13,6 +13,12 @@ position whose terms cancel, of the largest sum of its terms' magnitudes):
 within 4e-5), and the forward tests' 5e-4 * max(1, chunk / 64) against
 the sequential recurrence (another algorithm).
 
+``ssd_scan_bwd_split`` (the bf16 CUDA path's split: local states, the
+passes over the chunks, key tiles by head group with per-pair shares of
+dC and dacum, then the sums) is held against ``ssd_scan_bwd_ref`` and
+``jax.vjp`` of ``ssd_chunked`` at the same 1e-4, and its hi + lo bf16
+products against float32 products (see ``HILO_REL``).
+
 The CUDA kernel runs only on the card (``chip_smoke.py`` phase v).  Here
 ``SSDScan`` and the launcher run on CPU tensors that report themselves
 as CUDA ones, with the ctypes calls replaced by recorders: the launch
@@ -30,10 +36,13 @@ import torch
 from repro.kernels.ssd_scan.ref import ssd_ref as j_ssd_ref
 from repro.models.ssm import ssd_chunked as j_ssd_chunked
 from repro_torch.kernels.ssd_scan import ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_three_pass
+from repro_torch.kernels.ssd_scan.ref import (split_hi_lo, ssd_scan_bwd_ref,
+                                              ssd_scan_bwd_split,
+                                              ssd_three_pass)
 
 torch.set_num_threads(1)
 launcher = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+ref_module = importlib.import_module("repro_torch.kernels.ssd_scan.ref")
 
 # Bt, S, H, P, N, chunk: tests/test_kernels_ssd.py's cases, and ragged S.
 CASES = [
@@ -61,13 +70,14 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _ref_grads(x, B, C, dt, A_log, dy, chunk):
-    """ssd_scan_bwd_ref's gradients over (x, B, C, dt, A_log), and the
-    largest sum of magnitudes of A_log's terms (its tolerance's scale)."""
+def _ref_grads(x, B, C, dt, A_log, dy, chunk, bwd=ssd_scan_bwd_ref):
+    """The gradients of ``bwd`` (ssd_scan_bwd_ref's contract) over (x, B,
+    C, dt, A_log), and the largest sum of magnitudes of A_log's terms (its
+    tolerance's scale)."""
     A = -torch.exp(_t(A_log))
     dtt = _t(dt)
-    dx, dB, dC, da, ddt = ssd_scan_bwd_ref(_t(x), _t(B), _t(C), dtt * A, dtt,
-                                           _t(dy), chunk)
+    dx, dB, dC, da, ddt = bwd(_t(x), _t(B), _t(C), dtt * A, dtt, _t(dy),
+                              chunk)
     terms = da * dtt * A
     return ((dx, dB, dC, ddt + da * A, terms.sum(dim=(0, 1))),
             float(terms.abs().sum(dim=(0, 1)).max()))
@@ -123,6 +133,101 @@ def test_bwd_ref_padded_rows_change_nothing():
     x, B, C, dt, A_log, dy = _inputs(1, 40, 2, 16, 8)
     _close(_ref_grads(x, B, C, dt, A_log, dy, 16),
            _ref_grads(x, B, C, dt, A_log, dy, 8)[0], REL)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels' split: local states, passes, key tiles by head group
+# ---------------------------------------------------------------------------
+
+def _split(tile, hilo=False):
+    """ssd_scan_bwd_split with the launcher's head groups."""
+    def bwd(x, B, C, a, dt, dy, chunk):
+        gh = launcher.bwd_heads_per_block(x.shape[2], x.shape[3])
+        return ssd_scan_bwd_split(x, B, C, a, dt, dy, chunk, gh, tile=tile,
+                                  hilo=hilo)
+    return bwd
+
+
+@pytest.mark.parametrize("tile", [64, 8])
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", CASES + RAGGED)
+def test_split_matches_bwd_ref(Bt, S, H, P, N, chunk, tile):
+    """The split (at the kernels' 64-row tiles, and at 8-row tiles, which
+    give each chunk several key and query tiles) against the formulas."""
+    x, B, C, dt, A_log, dy = _inputs(Bt, S, H, P, N)
+    _close(_ref_grads(x, B, C, dt, A_log, dy, chunk, _split(tile)),
+           _ref_grads(x, B, C, dt, A_log, dy, chunk)[0], REL)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", CASES + RAGGED)
+def test_split_matches_reference_vjp_of_ssd_chunked(Bt, S, H, P, N, chunk):
+    x, B, C, dt, A_log, dy = _inputs(Bt, S, H, P, N)
+    want = _jax_vjp(jax.jit(lambda *a: j_ssd_chunked(*a, chunk)),
+                    x, B, C, dt, A_log, dy)
+    _close(_ref_grads(x, B, C, dt, A_log, dy, chunk, _split(16)), want, REL)
+
+
+def test_hi_lo_pair_keeps_16_bits():
+    """hi + lo of a float32 value is within 2^-17 of it (each bf16
+    rounding keeps 8 bits, the second of the first's remainder)."""
+    rng = np.random.default_rng(5)
+    v = _t((rng.standard_normal(100_000)
+            * 10.0 ** rng.uniform(-3, 3, 100_000)).astype(np.float32))
+    hi, lo = split_hi_lo(v)
+    assert hi.to(torch.bfloat16).float().equal(hi)
+    assert lo.to(torch.bfloat16).float().equal(lo)
+    assert ((hi + lo - v).abs() <= 2.0 ** -17 * v.abs()).all()
+
+
+# The hi + lo products (float32 sums) against float32 products, on the
+# bf16-valued inputs the kernels take: measured within 1.1e-5 of the
+# scale; held to 1e-3, a twentieth of phase v's bf16 tolerance of 2e-2.
+HILO_REL = 1e-3
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk", CASES + RAGGED)
+def test_hi_lo_products_stay_well_inside_the_bf16_tolerance(Bt, S, H, P, N,
+                                                            chunk):
+    x, B, C, dt, A_log, dy = (
+        a.astype(np.float32) if i in (3, 4) else np.asarray(
+            _t(a).to(torch.bfloat16).float())
+        for i, a in enumerate(_inputs(Bt, S, H, P, N)))
+    _close(_ref_grads(x, B, C, dt, A_log, dy, chunk, _split(16, hilo=True)),
+           _ref_grads(x, B, C, dt, A_log, dy, chunk, _split(16))[0],
+           HILO_REL)
+
+
+@pytest.mark.parametrize("Bt,S,H,P,N,chunk",
+                         [c for c in CASES + RAGGED if c[1] > c[5]])
+def test_the_lo_half_carries_da_and_ddt(Bt, S, H, P, N, chunk,
+                                        monkeypatch):
+    """With the lo halves cut (hi alone: plain bf16 products), da and ddt
+    move at least ten times as far from the float32 products as with the
+    pairs: what chip_smoke.py's SSD_BWD_HILO_TOL on the bf16 path's da
+    and ddt is there to catch (scripts/ssd_bwd_lo_cut.py cuts them in the
+    kernels).  At S > chunk: within a chunk da and ddt take G and dyx,
+    products of the bf16 inputs, and meet the computed operands only
+    through the states that chunks pass on."""
+    x, B, C, dt, A_log, dy = _inputs(Bt, S, H, P, N)
+    x, B, C, dy = (_t(v).to(torch.bfloat16).float() for v in (x, B, C, dy))
+    dt = _t(dt)
+    a = dt * -torch.exp(_t(A_log))
+    gh = launcher.bwd_heads_per_block(H, P)
+
+    def da_ddt(hilo):
+        return ssd_scan_bwd_split(x, B, C, a, dt, dy, chunk, gh, tile=16,
+                                  hilo=hilo)[3:]
+
+    want = da_ddt(False)
+
+    def err(got):
+        return max(float((g - w).abs().max()) / max(1.0, float(
+            w.abs().max())) for g, w in zip(got, want))
+
+    pair = err(da_ddt(True))
+    monkeypatch.setattr(ref_module, "split_hi_lo", lambda v, on=True: (
+        v.to(torch.bfloat16).float(),) if on else (v,))
+    hi = err(da_ddt(True))
+    assert hi > 0 and hi >= 10 * pair, (hi, pair)
 
 
 # ---------------------------------------------------------------------------
@@ -198,20 +303,36 @@ def test_grad_goes_through_the_backward_kernel(fake_launch, monkeypatch,
     gx, gdt, gA = torch.autograd.grad(y.float().sum(), (xh, dt, A_log))
     assert launcher.LAUNCHES == 1 and launcher.BWD_LAUNCHES == 1
     args = fake_launch["bwd"][0]
-    assert args[11:18] == (int(dtype == torch.bfloat16), 1, S, H, P, N,
-                           chunk)
+    gh = launcher.bwd_heads_per_block(H, P)
+    assert gh == 1
+    assert args[11:19] == (int(dtype == torch.bfloat16), 1, S, H, P, N,
+                           chunk, gh)
     row = H * P + 2 * N
-    assert args[18:25] == (S * row, row, P, S * row, row, S * row, row)
-    shapes = launcher.bwd_scratch_shapes(1, S, H, P, N, chunk)
-    nc, q_pad = 2, 64
-    assert shapes == {"s_in": (1, nc, H, P, N), "d_out": (1, nc, H, P, N),
-                      "acum": (1, nc, H, q_pad), "sd": (1, nc, H),
-                      "db_h": (1, S, H, N), "dc_h": (1, S, H, N),
-                      "dac": (1, S, H), "u": (1, S, H)}
+    assert args[19:26] == (S * row, row, P, S * row, row, S * row, row)
+    shapes = launcher.bwd_scratch_shapes(1, S, H, P, N, chunk, dtype)
+    nc, q_pad, f32 = 2, 64, torch.float32
+    if dtype == torch.float32:
+        assert shapes == {
+            "s_in": ((1, nc, H, P, N), f32), "d_out": ((1, nc, H, P, N), f32),
+            "acum": ((1, nc, H, q_pad), f32), "sd": ((1, nc, H), f32),
+            "db_h": ((1, S, H, N), f32), "dc_h": ((1, S, H, N), f32),
+            "dac": ((1, S, H), f32), "u": ((1, S, H), f32)}
+    else:   # one 64-row tile a chunk: one pair; two groups of one head
+        bf = torch.bfloat16
+        assert shapes == {
+            "sloc": ((1, nc, H, P, N), f32), "dloc": ((1, nc, H, P, N), f32),
+            "acum": ((1, nc, H, q_pad), f32),
+            "s_hl": ((1, nc, H, 2, P, N), bf),
+            "d_hl": ((1, nc, H, 2, P, N), bf),
+            "sd": ((1, nc, H, 1), f32), "db_part": ((1, S, 2, N), f32),
+            "dc_part": ((1, nc, 2, 1, 64, N), f32),
+            "rowpart": ((1, nc, H, 1, 64), f32),
+            "dac": ((1, S, H), f32), "u": ((1, S, H), f32)}
+    assert args[27] == len(shapes)
     scratch = {t.data_ptr(): t for t in made}
-    for ptr, shape in zip(args[25:33], shapes.values()):
+    for ptr, (shape, kind) in zip(list(args[26]), shapes.values()):
         assert tuple(scratch[ptr].shape) == shape
-        assert scratch[ptr].dtype == torch.float32
+        assert scratch[ptr].dtype == kind
     outs = [scratch[ptr] for ptr in args[6:11]]
     assert [t.dtype for t in outs] == [dtype] * 3 + [torch.float32] * 2
     assert [tuple(t.shape) for t in outs] == [(1, S, H, P), (1, S, N),
@@ -272,3 +393,22 @@ def test_bwd_takes_any_dy_strides(fake_launch):
     with pytest.raises(ValueError, match="dy must be"):
         launcher.ssd_scan_chunked_bwd(xh, Bm, Cm, dt * -1.0, dt,
                                       dy.to(torch.bfloat16), 16)
+
+
+def test_an_edited_header_builds_anew(tmp_path, monkeypatch):
+    """Both SSD sources include csrc/ssd_tc.cuh; a library's name hashes
+    the headers beside its source, so editing one builds anew."""
+    from repro_torch.kernels import _build
+    real = _build.sources()
+    assert real["ssd_scan"].parent == real["ssd_scan_bwd"].parent
+    assert (real["ssd_scan"].parent / "ssd_tc.cuh").exists()
+    csrc = tmp_path / "k" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "a.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    assert list(_build.sources()) == ["a"]
+    first = _build.library_path("a")
+    assert _build.library_path("a") == first
+    (csrc / "h.cuh").write_text("// two\n")
+    assert _build.library_path("a") != first
