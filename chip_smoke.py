@@ -19,14 +19,14 @@ Phases, one line each (or a few):
      Then the queue kernel (``flex_score_admit``) against
      ``admit_queue_ref``: placements and every node-state leaf bit for
      bit, at N in {4000, 4097, 100000} (src_count on chip, and gathered
-     from global memory) x Q in {1, 33, 4096}, on random, tied and
+     from global memory) x Q in {1, 33, 1024}, on random, tied and
      faulted tables (the faulted ones with flex-brownout's per-task caps),
      with the same five kinds of task and about 15% of the entries invalid;
      times per call at N = 4000 and 100000, Q = 4096 (graph replay and
      eager), per decision beside the bounds and the pick kernel's.
   3. the slice end to end: ``Experiment(ts, cfg, "flex-f")`` at the
      paper's cluster scale (4000 nodes), through the kernels for 24 slots
-     and through the policy's plain hooks for the first 4; the queue
+     and through the policy's plain hooks for the first 2; the queue
      kernel must launch once per non-empty slot queue and the pick kernel
      never, and the placements must be identical.
   4. small run against the CPU: the same replayed-noise flex-f run on the
@@ -51,10 +51,10 @@ after phase 3:
      Q = 4096 and Q = 64 (graph replay and eager) beside the bound, the
      achieved GB/s and the earlier design's time.
   b. the wavefront study: phase 3's configuration with
-     ``admission_mode="wavefront"``, its first 6 slots; placements and
+     ``admission_mode="wavefront"``, its first 3 slots; placements and
      admit slots must equal those slots of phase 3's queue-kernel run,
      and the top-K kernel must launch once per sweep.
-  c. the ``wavefront_topk=0`` loop, 3 slots deep (cut from 4 when phases
+  c. the ``wavefront_topk=0`` loop, 2 slots deep (cut from 4 when phases
      p and q came), against the first 3
      slots of phase 3's sequential run: the batched argmax kernel on a
      path.
@@ -70,7 +70,7 @@ Headroom reclamation and the predictive estimators, after phase f:
      past the last arrivals, when the pass can first place a task under
      flex-f): the queue kernel once per non-empty primary queue, the
      top-K kernel once per reclaim sweep, tasks reclaimed, placements in
-     range; the first 4 slots through the plain hooks with the same
+     range; the first 2 slots through the plain hooks with the same
      placements, admit slots and reclaim counts; logged beside phase 3's
      ``current`` run; the quantile refresh timed; a small least-fit
      reclamation run on the card against the CPU.
@@ -92,7 +92,7 @@ fault schedule (the benches' geometries cut to 24 slots):
      top-K kernel once per migration sweep, tasks fault-evicted and (ii)
      migrated; decisions/s, ms a slot and the migration pass's ms a slot;
      ``analysis.fault_recovery`` of both and (ii)'s retention against
-     (i)'s; the first 8 slots of (ii) on the plain path equal to the
+     (i)'s; the first 7 slots of (ii) on the plain path equal to the
      kernel path's: placements, admit slots and every counter.
   q. flex-f with ``ewma``, reclamation (a pool of 4096) and the guard
      bench's ``GuardConfig`` (its threshold and cooldown cut to this
@@ -101,7 +101,7 @@ fault schedule (the benches' geometries cut to 24 slots):
      on the ramp, the reclaim pool is not admitted while it is OPEN and
      the deferral grows, the half-open probe after the surge passes at
      most ``probe_reclaim`` candidates a slot through the top-K kernel;
-     the trip statistic per slot; the first 8 slots on both paths equal.
+     the trip statistic per slot; the first 7 slots on both paths equal.
 
 The serving path (launch/serve.py over ServeEngine) at stablelm-3b's full
 width, after phase a and after phase f:
@@ -130,7 +130,7 @@ width, after phase a and after phase f:
      prefill, flex must evict and admit at least as many requests as
      reserve, and each run's decisions must equal the same engine's on
      the CPU.
-  i. prefill against decode on the card (full width, bf16, a 512-token
+  i. prefill against decode on the card (full width, bf16, a 128-token
      prompt), and a small f32 smoke-config run against the CPU port.
   j. profile: where one full-width prefill (2048 tokens) and one decode
      step of a full replica spend their time.
@@ -161,7 +161,7 @@ after phase j:
 The serving engine's faults and the MoE family, after phase m:
 
   r. phase h's model and settings on 4 replicas x 8 slots, 64 requests of
-     its workload, at most 120 steps, flex in wavefront mode: (i) a crash
+     its workload, at most 80 steps, flex in wavefront mode: (i) a crash
      burst on a quarter of the replicas (step 20, 24 steps down), storms
      and the brownout; (ii) the same announced 4 steps ahead, with live
      migration; (iii) (ii) with the drift guard (threshold 0.07, cooldown
@@ -233,9 +233,51 @@ Training (the ssm family), phase v after phase k and phase w after u:
      peak memory, a profiled step (kernels, idle share, the backward's
      share and each of its kernels'); the smoke config in f32 on the
      card against the CPU port from the same weights, three steps'
-     losses and gradients; and a
-     dense smoke config's loss under grad on the card raising the flash
-     kernel's missing-backward error.
+     losses and gradients; then the same for the smoke configs of the
+     five attention families (stablelm-3b, whisper-medium, mixtral-8x7b,
+     zamba2-7b, llava-next-mistral-7b: dense, encdec, moe, hybrid, vlm),
+     through the flash kernels' float32 forward and backward on the card
+     against the CPU's plain attention.
+
+Training the attention families, phase x after phase v and phase y after
+phase w:
+
+  x. the flash-attention backward kernel (``flash_attention_bwd.cu``)
+     against its plain version ``attention_bwd_ref`` on the same CUDA
+     tensors, dq, dk and dv, with the forward's row log-sum-exp against
+     ``attention_lse_ref``: stablelm-3b's training shape (B 8, H = KV =
+     32, S 2048, hd 80, causal), whisper-medium's encoder (B 8, H 16,
+     S 1500, hd 64, unmasked), decoder self attention (S 447, causal)
+     and cross attention (Sq 447, Sk 1500), llava's and mixtral's hd 128
+     over 8 kv heads at S 2048 (and with a window of 1024), chatglm3-6b's
+     2 kv heads, zamba2-7b's hd 112, hd 32, ragged S in {1, 37, 129,
+     1000} and causal at Sq != Sk; f32 within 1e-4 and bf16 within 2e-2
+     of max(1, each gradient's largest plain magnitude), lse within 1e-4
+     of max(1, its largest), each case's forward (o and lse, which a
+     recomputation under checkpoint must reproduce) and backward twice
+     and bit-equal; times at
+     stablelm-3b's and whisper's encoder and cross shapes (eager, and
+     replayed from a CUDA graph) beside the bound (10 hd flops a live
+     pair at the bf16 peak), ``attention_bwd_ref``, the backward of
+     ``scaled_dot_product_attention`` alone and the forward with and
+     without lse; each of the three kernels' time in a profiled call.
+  y. ``launch.train.train`` on stablelm-3b at its published widths (32
+     layers, d_model 2560, hd 80, vocab 50,304), bf16, random weights,
+     B 8 x S 2048, 8 steps with checkpoints every 4 and a resume from
+     step 4, and on whisper-medium (24 + 24 layers, 1500 frames, B 8 x
+     447 tokens), 4 steps with a resume from step 2: finite losses, the
+     last below the first, the resumed losses within 1e-3 of the
+     uninterrupted run's (bit-equality logged), flash launches a step of
+     2 forward (forward and recomputation) and 1 backward per attention
+     call (stablelm-3b 64 and 32; whisper-medium 144 and 72: encoder
+     self, decoder self and cross attention in each layer); ms per step
+     (CUDA events), tokens/s, peak memory and a profiled step (the
+     flash forward's and backward's shares of the device time, the idle
+     share); then mixtral-8x7b (2 of 32 layers), zamba2-7b (18 of 81,
+     two calls of the shared attention block) and llava-next-mistral-7b
+     (8 of 32, 576 patches, S 2048) at full width, B 8, two steps each
+     through the train step: finite losses and gradient norms, ms per
+     step, peak memory, the launch counts.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
@@ -243,6 +285,7 @@ Any failure raises and the script exits non-zero.  Without a GPU it exits
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
 import json
@@ -272,14 +315,21 @@ FULL = dict(n_nodes=4000, n_slots=24, arrivals_per_slot=4096,
             retry_capacity=1024)
 PAPER_SLOTS = 288
 OFFERED_LOAD = 1.6
-# Depth of phase 3's plain-path run, cut to fit the time limit (from 8
-# slots to 4 when the Mamba2 phases came): it is held against the kernel
-# run's first PLAIN_SLOTS slots.
-PLAIN_SLOTS = 4
+# Depth of phase 3's (and phase n's) plain-path run, cut to fit the time
+# limit (from 8 slots to 4 when the Mamba2 phases came, to 2 when phases x
+# and y did: ~7.5 s a slot): it is held against the kernel run's first
+# PLAIN_SLOTS slots.
+PLAIN_SLOTS = 2
 # Depth of phase b's wavefront study, cut from 24 slots to 12 when the
-# serving phases joined the run, to keep it inside half its time limit: it
-# is held against the sequential run's first WAVE_SLOTS slots.
-WAVE_SLOTS = 12
+# serving phases joined the run, and to 3 when phases x and y (training
+# the attention families, ~100 s) did, to keep the run inside its time
+# limit on a slow host (967 s on one card with b at 6 slots, ~11 s a
+# slot): it is held against the sequential run's first WAVE_SLOTS slots,
+# and its top-K launches once per sweep.
+WAVE_SLOTS = 3
+# Depth of phase c's wavefront_topk=0 loop, cut from 4 slots to 2 with
+# phase b (~7 s a slot).
+TOPK0_SLOTS = 2
 # Depth of phases n and o, raised from 24 and 12 slots to 27.  Under
 # flex-f the reclaim cap (1 - 0.1 P) is tighter than primary admission's
 # (1), so the pass places a pooled task only once the primary queue stops
@@ -287,9 +337,10 @@ WAVE_SLOTS = 12
 # under a current-like estimate (phase o) the pool stays empty for the
 # first dozen slots or more, and an empty pool launches no sweep.
 RECLAIM_SLOTS = 27
-# Depth of the plain-path runs of phases p and q: their first 8 slots hold
-# the drain (slots 3-5), the crash's onset (slot 6) and the breaker's trip.
-FAULT_SLOTS = 8
+# Depth of the plain-path runs of phases p and q: their first 7 slots hold
+# the drain (slots 3-5), the crash's onset (slot 6) and the breaker's trip
+# (slot 5).  Cut from 8 when phases x and y came (~9.6 s a plain slot).
+FAULT_SLOTS = 7
 # Phase a's sizes, and the width of the synthetic queues of phases a, d, f
 # (the study's compacted queues hold about 4,100-5,100 tasks a slot; 64 is
 # the dedup's bucket count, 2 the serving engine's replica count).
@@ -306,7 +357,11 @@ BATCH_EARLIER_US = {"flex_score_batch_pick": 65.375,
 # The queue kernel's sizes in phase 2: N = 4000 and 4097 hold src_count on
 # chip, N = 100000 gathers it from global memory (admit_plan).
 QUEUE_NS = (4000, 4097, 100000)
-QUEUE_QS = (1, 33, 4096)
+# Q 4096 was cut to 1024 for the bit-equality cases when phases x and y
+# came (the plain admit_queue_ref takes ~4 s a 4,096-task queue; phase 3
+# holds the kernel on the study's own 4,100-5,100-task queues); the times
+# stay at QUEUE.
+QUEUE_QS = (1, 33, 1024)
 # The pick kernel's time per decision at N = 4000 (graph replay), the
 # design the queue kernel replaces on the sequential path, and its bytes
 # bound per decision: PERF.md's kernel table, row 1 (PR 14's run P2,
@@ -1055,7 +1110,7 @@ def wavefront_study(dev, ts, res_seq) -> int:
     return c["topk"]
 
 
-def topk0_loop(dev, ts, res_seq, n_slots: int = 4) -> int:
+def topk0_loop(dev, ts, res_seq, n_slots: int = TOPK0_SLOTS) -> int:
     """Phase c; returns the batched argmax kernel's launches.  The run's
     decisions must be those of the sequential kernel run's first
     ``n_slots`` slots, which a sequential run of that depth makes."""
@@ -2388,7 +2443,9 @@ SERVE_BUDGET = 8500
 # card, so their wall times differ only by host jitter, and a constant
 # keeps straggler inflation off and the decisions replayable on the CPU.
 SERVE_STEP_TIME = 1.0
-PREFILL_DECODE_S = 512
+# The prompt of phase i's prefill-against-decode check, cut from 512 to
+# 128 tokens when phases x and y came (a decode step at 1 slot is ~66 ms).
+PREFILL_DECODE_S = 128
 # bf16 keeps 8 significant bits: a logit of order 4 carries an ulp of 1/32,
 # and prefill and decode round at different places in each of 32 layers.
 PREFILL_DECODE_TOL = 0.25
@@ -2764,9 +2821,10 @@ def _smoke_against_cpu(dev, arch: str) -> None:
         raise AssertionError(f"{small.name}: card and CPU differ by {err}")
 
 
-# Kernel names of the port's prefill kernels, and of the bf16 SSD
-# backward's, in a profiler trace.
+# Kernel names of the port's prefill kernels, and of the bf16 SSD and
+# flash-attention backwards', in a profiler trace.
 PORT_KERNELS = {"flash_attention": ("flash_fwd_",),
+                "flash_attention_bwd": ("bwd_delta", "dkv_bf16", "dq_bf16"),
                 "ssd_scan": ("chunk_state", "state_pass", "chunk_scan",
                              "ssd_fwd"),
                 "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_pass",
@@ -2923,8 +2981,10 @@ def final_state_check(dev) -> None:
 # ---------------------------------------------------------------------------
 
 # Phase h's model and settings on 4 replicas x 8 slots (about 6.7 GB of
-# cache a replica), 64 requests of its workload, at most 120 steps.
-FAULT_SERVE = dict(replicas=4, requests=64, steps=120)
+# cache a replica), 64 requests of its workload, at most 80 steps (cut
+# from 120 when phases x and y came: the burst, the migrations and the
+# breaker's trip, probe and close all fall before step 45).
+FAULT_SERVE = dict(replicas=4, requests=64, steps=80)
 # A burst crashes a quarter of the replicas (replica 0) for 24 steps, with
 # straggler storms and the brownout.  The burst lands at step 20, not 12:
 # the workload's requests generate 16 tokens or more, so none finishes
@@ -3375,11 +3435,15 @@ TRAIN_SMOKE = dict(batch=2, seq=64, steps=3)
 # update m / sqrt(v) amplifies a difference in a near-zero gradient.
 TRAIN_SMOKE_LOSS_RTOL = 1e-4
 TRAIN_SMOKE_GRAD_REL = 1e-3
+# The families with attention (dense, encdec, moe, hybrid, vlm), held the
+# same way after mamba2-370m.
+TRAIN_SMOKE_ATTENTION = ("stablelm-3b", "whisper-medium", "mixtral-8x7b",
+                         "zamba2-7b", "llava-next-mistral-7b")
 
 
-def _train_smoke_against_cpu(dev) -> None:
-    """mamba2-370m's smoke config in float32 on the card and on the CPU
-    port from the same weights: three steps' losses and gradients."""
+def _train_smoke_against_cpu(dev, arch: str = TRAIN_ARCH) -> None:
+    """``arch``'s smoke config in float32 on the card and on the CPU port
+    from the same weights: three steps' losses and gradients."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -3388,7 +3452,7 @@ def _train_smoke_against_cpu(dev) -> None:
                                    optimizer_view, synthetic_batch,
                                    value_and_grad)
 
-    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = build_model(cfg, remat=False)
     cpu = torch.device("cpu")
     runs = {}
@@ -3421,35 +3485,11 @@ def _train_smoke_against_cpu(dev) -> None:
             if not err <= TRAIN_SMOKE_GRAD_REL * scale:
                 raise AssertionError(f"train smoke step {i}: gradient {k} "
                                      f"off by {err} of max {scale}")
-    log(f"[train] smoke {TRAIN_ARCH} f32, {TRAIN_SMOKE['steps']} steps at "
+    log(f"[train] smoke {arch} f32, {TRAIN_SMOKE['steps']} steps at "
         f"B={TRAIN_SMOKE['batch']} S={TRAIN_SMOKE['seq']}, card vs CPU: "
         f"losses within {worst_loss:.3g} (rtol {TRAIN_SMOKE_LOSS_RTOL}), "
         f"gradients within {worst_grad:.3g} of each leaf's largest "
         f"(limit {TRAIN_SMOKE_GRAD_REL})")
-
-
-def _flash_raises_under_grad(dev) -> None:
-    """A dense smoke config's loss under grad on the card raises the
-    flash kernel's missing-backward error."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.flash_attention.ops import FlashBackwardMissing
-    from repro_torch.models import build_model
-    from repro_torch.train import synthetic_batch, value_and_grad
-
-    cfg = get_smoke_config(ARCH)
-    model = build_model(cfg, remat=False)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
-    params = model.init(gen)
-    try:
-        value_and_grad(model, params, synthetic_batch(cfg, 2, 64, 0, 0,
-                                                      device=dev))
-    except FlashBackwardMissing as err:
-        log(f"[train] {ARCH} smoke loss under grad on the card raises "
-            f"FlashBackwardMissing: {err}")
-        return
-    raise AssertionError(f"{ARCH}: a loss under grad on the card did not "
-                         f"raise FlashBackwardMissing")
 
 
 def train_end_to_end(dev) -> int:
@@ -3504,10 +3544,12 @@ def train_end_to_end(dev) -> int:
             f"launches forward {fwd} (forward + recomputation), backward "
             f"{bwd}")
 
-        # Resume from the step-4 checkpoint (keep=3 left steps 4 and 8).
+        # Resume from the step-4 checkpoint (keep=3 left steps 4 and 8),
+        # moved, not copied: the whole run keeps its disk writes under
+        # 45 GiB.
         (tmp / "b").mkdir()
         name = f"step_{TRAIN_RESUME_AT:08d}"
-        shutil.copytree(tmp / "a" / name, tmp / "b" / name)
+        shutil.move(str(tmp / "a" / name), str(tmp / "b" / name))
         ssd.reset_launches()
         resumed, _, res_losses = train(TRAIN_ARCH, steps=steps,
                                        ckpt_dir=str(tmp / "b"), resume=True,
@@ -3555,8 +3597,516 @@ def train_end_to_end(dev) -> int:
     torch.cuda.empty_cache()
 
     _train_smoke_against_cpu(dev)
-    _flash_raises_under_grad(dev)
+    # The attention families, their flash attention forward and backward
+    # on the card's float32 kernels against the CPU's plain attention.
+    for arch in TRAIN_SMOKE_ATTENTION:
+        _train_smoke_against_cpu(dev, arch)
     return bwd + bwd_resumed
+
+
+# ---------------------------------------------------------------------------
+# phase x: the flash-attention backward kernel against plain
+# ---------------------------------------------------------------------------
+
+# (label, B, H, KV, Sq, Sk, hd, causal, window): the training shapes of
+# phase y's models (stablelm-3b at its batch; whisper-medium's encoder,
+# decoder self and cross attention; llava's and mixtral's hd 128 over 8
+# kv heads, with mixtral's window cut to 1024, since 4096 never binds at
+# S 2048), chatglm3-6b's 2 kv heads (G = 16), zamba2-7b's hd 112, hd 32,
+# ragged S, and causal at Sq != Sk (query 0 with key 0).
+FLASH_BWD_CASES = (
+    ("stablelm-3b", 8, 32, 32, 2048, 2048, 80, True, 0),
+    ("whisper-medium encoder", 8, 16, 16, 1500, 1500, 64, False, 0),
+    ("whisper-medium decoder self", 8, 16, 16, 447, 447, 64, True, 0),
+    ("whisper-medium cross", 8, 16, 16, 447, 1500, 64, False, 0),
+    ("llava/mixtral", 2, 32, 8, 2048, 2048, 128, True, 0),
+    ("mixtral, window 1024", 2, 32, 8, 2048, 2048, 128, True, 1024),
+    ("chatglm3-6b", 1, 32, 2, 2048, 2048, 128, True, 0),
+    ("zamba2-7b", 1, 32, 32, 2048, 2048, 112, True, 0),
+    ("hd 32", 2, 8, 8, 512, 512, 32, True, 0),
+    *((f"ragged S={s}", 1, 8, 2, s, s, 80, True, 0)
+      for s in (1, 37, 129, 1000)),
+    ("causal Sq > Sk", 1, 4, 4, 300, 129, 64, True, 0),
+    ("causal Sq < Sk, window 40", 1, 4, 2, 129, 300, 64, True, 40),
+)
+# Timed, beside the bound, the plain version and SDPA's backward.
+FLASH_BWD_TIMED = ("stablelm-3b", "whisper-medium encoder",
+                   "whisper-medium cross")
+# Each gradient within tol x max(1, its largest plain magnitude); the
+# forward's lse within FLASH_LSE_TOL of max(1, its largest).  bf16: P and
+# dS enter the tensor-core products rounded once to bf16, and the
+# gradients are rounded once on the way out.
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_LSE_TOL = 1e-4
+FLASH_BWD_GRADS = ("dq", "dk", "dv")
+
+
+def _attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    total = 0
+    for r in range(sq):
+        hi = min(r + 1, sk) if causal else sk
+        lo = max(r - window + 1, 0) if window > 0 else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+def _flash_bwd_bound(b, h, kv, sq, sk, hd, causal, window, elt: int):
+    """(bound ms, what bounds it) of one backward call: S, dP, dV, dK and
+    dQ, 2 hd flops each per unmasked pair, at the bf16 peak; q, o, dO, dq
+    and k, v, dk, dv once, and lse, over 3.35 TB/s."""
+    flops = 10 * hd * h * b * _attn_pairs(sq, sk, causal, window)
+    n_bytes = (4 * b * h * sq * hd + 4 * b * kv * sk * hd) * elt + 4 * b * h * sq
+    by_ops = flops / BF16_FLOPS * 1e3
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def _bshd_views(b, h, s, hd, gen, dev, dtype, random=True):
+    """A (B, S, H, hd) tensor, the model's layout, as a (B, H, S, hd)
+    view."""
+    shape = (b, s, h, hd)
+    t = (torch.randn(shape, generator=gen, device=dev).to(dtype) if random
+         else torch.empty(shape, dtype=dtype, device=dev))
+    return t.transpose(1, 2)
+
+
+def flash_bwd_vs_plain(dev) -> dict:
+    """Phase x: the backward kernel (and the forward's lse) against
+    ``attention_bwd_ref`` (``attention_lse_ref``) on the same CUDA
+    tensors, each case twice bit-equal; times at the training shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention"
+                                 ".flash_attention")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_lse = 0.0
+    for label, b, h, kv, sq, sk, hd, causal, window in FLASH_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = (f"{label} (B={b} H={h} KV={kv} Sq={sq} Sk={sk} hd={hd} "
+                    f"causal={causal} window={window}) {str(dtype)[6:]}")
+            q, do = (_bshd_views(b, h, sq, hd, gen, dev, dtype)
+                     for _ in range(2))
+            k, v = (_bshd_views(b, kv, sk, hd, gen, dev, dtype)
+                    for _ in range(2))
+            o = _bshd_views(b, h, sq, hd, gen, dev, dtype, random=False)
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+            mask = dict(causal=causal, window=window)
+            fa.flash_attention_bhsd(q, k, v, out=o, lse=lse, **mask)
+            # A recomputation under checkpoint must give the saved bits.
+            o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+            fa.flash_attention_bhsd(q, k, v, out=o2, lse=lse2, **mask)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"flash_bwd {name}: the forward's o "
+                                     f"or lse differs between two calls")
+            del o2, lse2
+            want_o, want_lse = attention_lse_ref(q, k, v, **mask)
+            err_o = float((o.float() - want_o.float()).abs().max())
+            if not err_o <= FLASH_TOL[dtype]:
+                raise AssertionError(f"flash_bwd {name}: the forward's "
+                                     f"output off by {err_o}")
+            err_lse = float((lse - want_lse).abs().max())
+            scale = max(1.0, float(want_lse.abs().max()))
+            worst_lse = max(worst_lse, err_lse / scale)
+            if not (torch.isfinite(lse).all() and err_lse <= FLASH_LSE_TOL
+                    * scale):
+                raise AssertionError(f"flash_bwd {name}: lse off by "
+                                     f"{err_lse} of {scale}")
+            del want_o, want_lse
+
+            def bwd():
+                bufs = [_bshd_views(b, n, s, hd, gen, dev, dtype, False)
+                        for n, s in ((h, sq), (kv, sk), (kv, sk))]
+                return fa.flash_attention_bhsd_bwd(
+                    q, k, v, o, lse, do, dq=bufs[0], dk=bufs[1], dv=bufs[2],
+                    **mask)
+
+            got, again = bwd(), bwd()
+            torch.cuda.synchronize()
+            for what, g1, g2 in zip(FLASH_BWD_GRADS, got, again):
+                if not torch.equal(g1, g2):
+                    raise AssertionError(f"flash_bwd {name}: {what} differs "
+                                         f"between two calls")
+            del again
+            want = attention_bwd_ref(q, k, v, o, lse, do, **mask)
+            parts = []
+            for what, g, w in zip(FLASH_BWD_GRADS, got, want):
+                err = float((g.float() - w.float()).abs().max())
+                scale = max(1.0, float(w.float().abs().max()))
+                worst[dtype] = max(worst[dtype], err)
+                worst_rel[dtype] = max(worst_rel[dtype], err / scale)
+                if not err <= FLASH_BWD_TOL[dtype] * scale:
+                    raise AssertionError(
+                        f"flash_bwd {name}: {what} off by {err}, above "
+                        f"{FLASH_BWD_TOL[dtype]} x {scale:.4g}")
+                parts.append(f"{what} {err:.3g} of {scale:.4g}")
+            log(f"[flash_bwd] {name}: max abs error " + ", ".join(parts)
+                + f"; lse {err_lse:.3g}, o {err_o:.3g}; forward (o, lse) and "
+                "backward each bit-equal over two calls")
+            del q, k, v, do, o, lse, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[flash_bwd] worst error over max(1, |plain|): f32 "
+        f"{worst_rel[torch.float32]:.3g} (tolerance "
+        f"{FLASH_BWD_TOL[torch.float32]}), bf16 "
+        f"{worst_rel[torch.bfloat16]:.3g} ({FLASH_BWD_TOL[torch.bfloat16]});"
+        f" lse {worst_lse:.3g} ({FLASH_LSE_TOL})")
+
+    timed = {}
+    cases = {c[0]: c[1:] for c in FLASH_BWD_CASES}
+    for label in FLASH_BWD_TIMED:
+        b, h, kv, sq, sk, hd, causal, window = cases[label]
+        mask = dict(causal=causal, window=window)
+        dt = torch.bfloat16
+        q, do = (_bshd_views(b, h, sq, hd, gen, dev, dt) for _ in range(2))
+        k, v = (_bshd_views(b, kv, sk, hd, gen, dev, dt) for _ in range(2))
+        o = _bshd_views(b, h, sq, hd, gen, dev, dt, random=False)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        grads = [_bshd_views(b, n, s, hd, gen, dev, dt, False)
+                 for n, s in ((h, sq), (kv, sk), (kv, sk))]
+        fwd = lambda: fa.flash_attention_bhsd(q, k, v, out=o, **mask)
+        fwd_lse = lambda: fa.flash_attention_bhsd(q, k, v, out=o, lse=lse,
+                                                  **mask)
+        fwd_lse()
+        run = lambda: fa.flash_attention_bhsd_bwd(
+            q, k, v, o, lse, do, dq=grads[0], dk=grads[1], dv=grads[2],
+            **mask)
+        ms, graph_ms = _event_ms(run, reps=10), _median_ms(run, 5, 10)
+        f_ms, f_graph = _event_ms(fwd, reps=10), _median_ms(fwd, 5, 20)
+        fl_ms, fl_graph = (_event_ms(fwd_lse, reps=10),
+                           _median_ms(fwd_lse, 5, 20))
+        plain_ms = _event_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                       **mask), reps=3)
+        # SDPA's backward alone, on (B, H, S, hd) copies (its graph kept
+        # between calls), for the library column.
+        qs, ks, vs = (t.contiguous().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        dos = do.contiguous()
+        lib_ms = _event_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), dos, retain_graph=True), reps=10)
+        del out, qs, ks, vs, dos
+        bound_ms, bound_by = _flash_bwd_bound(b, h, kv, sq, sk, hd, causal,
+                                              window, 2)
+        timed[label] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        log(f"[flash_bwd] {label} B={b} H={h} KV={kv} Sq={sq} Sk={sk} "
+            f"hd={hd} causal={causal} bf16: backward kernel {ms:.4f} ms "
+            f"eager (graph replay {graph_ms:.4f} ms), plain "
+            f"(attention_bwd_ref) {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention's backward {lib_ms:.4f} ms eager;"
+            f" bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of"
+            f" it eager, {bound_ms / graph_ms:.4f} replayed; the forward "
+            f"(row 4) {f_ms:.4f} ms eager, {f_graph:.4f} replayed without "
+            f"lse, {fl_ms:.4f} / {fl_graph:.4f} with it")
+        parts = _flash_bwd_kernels(run)
+        log(f"[flash_bwd] {label} profiled call: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+        del q, k, v, do, o, lse, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    ms, plain_ms, bound_ms, bound_by, lib_ms = timed[FLASH_BWD_TIMED[0]]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:27",
+                launches=0, max_abs_err=max(worst.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
+def _flash_bwd_kernels(run) -> dict:
+    """Device ms of each of the backward's three kernels in one profiled
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = PORT_KERNELS["flash_attention_bwd"]
+    return {name: ms for name, (_, ms) in _port_kernel_ms(
+        _device_kernels(prof), names).items()}
+
+
+# ---------------------------------------------------------------------------
+# phase y: the attention families trained at full width
+# ---------------------------------------------------------------------------
+
+# (arch, batch, tokens, steps, checkpoint every, resume from, the depth
+# of the resume check): every layer at the published widths through
+# launch/train.py.  A checkpoint holds the bf16 weights and AdamW's two
+# float32 moments: 28 GB at stablelm-3b's 32 layers, 7.6 GB at whisper-
+# medium's 24 + 24.  The uninterrupted run and the resumed one write three
+# (steps 4 and 8, and 8 again), and the whole run keeps its disk writes
+# under 45 GiB (phase w's are 11 GB), so the full depth trains without
+# checkpoints and the resume check runs at the same widths and batch with
+# 2 layers (2 + 2 for whisper): 4.2 and 1.2 GB a checkpoint.
+TRAIN_FULL = (("stablelm-3b", 8, 2048, 8, 4, 4, dict(n_layers=2)),
+              ("whisper-medium", 8, 447, 4, 2, 2,
+               dict(n_layers=2, n_enc_layers=2)))
+# Full width with fewer layers, so that the weights, their gradients and
+# AdamW's float32 moments fit one 80 GB card: (arch, layers kept, batch,
+# tokens), TRAIN_CUT_STEPS steps each through the train step.  mixtral-
+# 8x7b keeps 2 of 32 layers (3.2 B parameters, ~51 GB with moments and
+# gradients), zamba2-7b 18 of 81 (two calls of the shared attention
+# block), llava-next-mistral-7b 8 of 32 with its 576 patches (S 2048).
+TRAIN_CUT = (("mixtral-8x7b", 2, 8, 2048),
+             ("zamba2-7b", 18, 8, 2048),
+             ("llava-next-mistral-7b", 8, 8, 1472))
+TRAIN_CUT_STEPS = 2
+
+
+def _attention_calls(cfg) -> int:
+    """Flash calls in one forward of ``loss``: a layer's self attention;
+    whisper's encoder self, decoder self and cross attention; the hybrid's
+    shared block where it runs."""
+    from repro_torch.models.model import n_shared_invocations
+
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return n_shared_invocations(cfg)
+    return cfg.n_layers
+
+
+def _check_flash_launches(what: str, fwd: int, bwd: int, calls: int,
+                          steps: int) -> None:
+    """Under per-layer recomputation each attention forward runs twice a
+    step (forward and recomputed) and its backward once."""
+    if fwd != 2 * calls * steps or bwd != calls * steps:
+        raise AssertionError(
+            f"{what}: {fwd} forward and {bwd} backward flash launches in "
+            f"{steps} steps, expected {2 * calls * steps} and "
+            f"{calls * steps} ({calls} attention calls a forward)")
+
+
+def _check_losses(what: str, losses) -> None:
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the last loss {losses[-1]} is not "
+                             f"below the first {losses[0]}")
+
+
+@contextlib.contextmanager
+def _trainer_config(**fields):
+    """``launch.train.train`` builds its config with these fields
+    replaced (a depth cut) while the block runs."""
+    import dataclasses
+
+    lt = importlib.import_module("repro_torch.launch.train")
+    orig = lt.get_config
+    lt.get_config = lambda arch: dataclasses.replace(orig(arch), **fields)
+    try:
+        yield
+    finally:
+        lt.get_config = orig
+
+
+def _train_full(dev, arch, batch, seq, steps, every, resume_at,
+                cut) -> tuple:
+    """``launch.train.train`` on ``arch`` at full width and depth for
+    ``steps`` steps, then at the depth ``cut`` with checkpoints every
+    ``every`` and a resume from step ``resume_at``; returns (the full
+    model, flash forward launches, backward launches)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention"
+                                 ".flash_attention")
+    cfg = get_config(arch)
+    calls = _attention_calls(cfg)
+    kw = dict(smoke=False, batch=batch, seq=seq, log_every=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    params, _, losses = train(arch, steps=steps, ckpt_dir=None,
+                              resume=False, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_losses(f"train {arch}", losses)
+    _check_flash_launches(f"train {arch}", fwd, bwd, calls, steps)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[train] {arch} full width ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+           f"frames" if cfg.family == "encdec" else "")
+        + f", d_model {cfg.d_model}, H {cfg.n_heads} KV {cfg.n_kv_heads} "
+        f"hd {cfg.head_dim_}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} "
+        f"B parameters), bf16, B={batch} S={seq}, {steps} steps through "
+        f"launch/train.py: losses {[round(x, 4) for x in losses]}; "
+        f"{wall:.2f} s with init; peak memory {peak:.2f} GiB; flash "
+        f"launches forward {fwd} (forward + recomputation), backward {bwd}")
+
+    # Checkpoints and the resume at the depth cut (disk: see TRAIN_FULL).
+    small = dataclasses.replace(cfg, **cut)
+    small_calls = _attention_calls(small)
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        with _trainer_config(**cut):
+            fa.reset_launches()
+            kw["ckpt_every"] = every
+            ref, _, ref_losses = train(arch, steps=steps,
+                                       ckpt_dir=str(tmp / "a"),
+                                       resume=False, **kw)
+            f_a, b_a = fa.LAUNCHES, fa.BWD_LAUNCHES
+            _check_losses(f"train {arch} at {cut}", ref_losses)
+            _check_flash_launches(f"train {arch} at {cut}", f_a, b_a,
+                                  small_calls, steps)
+            (tmp / "b").mkdir()
+            name = f"step_{resume_at:08d}"
+            shutil.move(str(tmp / "a" / name), str(tmp / "b" / name))
+            shutil.rmtree(tmp / "a")
+            fa.reset_launches()
+            resumed, _, res_losses = train(arch, steps=steps,
+                                           ckpt_dir=str(tmp / "b"),
+                                           resume=True, **kw)
+            f_r, b_r = fa.LAUNCHES, fa.BWD_LAUNCHES
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_flash_launches(f"train {arch} at {cut}, resumed", f_r, b_r,
+                          small_calls, steps - resume_at)
+    want = ref_losses[resume_at:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(res_losses, want))
+    if len(res_losses) != len(want) or not worst <= TRAIN_RESUME_RTOL:
+        raise AssertionError(f"train {arch}: resumed losses {res_losses} vs "
+                             f"{want}")
+    same = sum(torch.equal(p, q) for p, q in zip(ref.parameters(),
+                                                 resumed.parameters()))
+    n_small = sum(p.numel() for p in ref.parameters())
+    log(f"[train] {arch} at {cut} (same widths and batch; "
+        f"{n_small / 1e9:.3f} B parameters), {steps} steps with checkpoints "
+        f"every {every}: losses {[round(x, 4) for x in ref_losses]}; "
+        f"resumed from step {resume_at}: losses "
+        f"{[round(x, 4) for x in res_losses]}, within {worst:.3g} of the "
+        f"uninterrupted run's (rtol {TRAIN_RESUME_RTOL}); losses bit-equal: "
+        f"{res_losses == want}; {same} of {len(list(ref.parameters()))} "
+        f"parameter tensors bit-equal at step {steps}")
+    del ref, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params, fwd + f_a + f_r, bwd + b_a + b_r
+
+
+def _train_step_numbers(dev, cfg, params, batch, seq, index) -> None:
+    """One step's time (CUDA events), tokens/s and a profiled step."""
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, adamw_init, make_train_step,
+                                   optimizer_view, synthetic_batch)
+
+    model = build_model(cfg, remat=True)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                              total_steps=100), donate=True)
+    state = [params, adamw_init(optimizer_view(params))]
+    data = synthetic_batch(cfg, batch, seq, 0, index, device=dev)
+
+    def one_step():
+        state[:2] = step(state[0], state[1], data)[:2]
+
+    ms = _event_ms(one_step, reps=1)
+    tokens = batch * seq
+    log(f"[train] {cfg.name} one full-width step: {ms:.2f} ms (CUDA events)"
+        f", {tokens / ms * 1e3:.0f} tokens/s ({tokens} tokens a step)")
+    _profile(cfg, f"training step B={batch} S={seq}", one_step)
+    state.clear()
+
+
+def _train_cut(dev, arch, layers, batch, seq) -> tuple:
+    """``arch`` at full width with ``layers`` layers: TRAIN_CUT_STEPS
+    steps through the train step; returns (flash forward launches,
+    backward launches)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, adamw_init, make_train_step,
+                                   optimizer_view, synthetic_batch)
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention"
+                                 ".flash_attention")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    calls = _attention_calls(cfg)
+    model = build_model(cfg, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = adamw_init(optimizer_view(params))
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                              total_steps=100), donate=True)
+    fa.reset_launches()
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_CUT_STEPS):
+        data = synthetic_batch(cfg, batch, seq, 0, i, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = step(params, opt, data)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    # A finite global norm means every gradient element is finite.
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train {arch} ({layers} layers): losses "
+                             f"{losses}, gradient norms {norms}")
+    _check_flash_launches(f"train {arch} ({layers} layers)", fwd, bwd,
+                          calls, TRAIN_CUT_STEPS)
+    positions = seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+    log(f"[train] {arch} full width (d_model {cfg.d_model}, H {cfg.n_heads} "
+        f"KV {cfg.n_kv_heads} hd {cfg.head_dim_}), {layers} of "
+        f"{full.n_layers} layers (cut so that weights, gradients and AdamW's "
+        f"moments fit one card; {n_params / 1e9:.3f} B parameters), bf16, "
+        f"B={batch} S={positions}: {TRAIN_CUT_STEPS} steps through the train"
+        f" step, losses {[round(x, 4) for x in losses]}, gradient norms "
+        f"{[round(x, 4) for x in norms]} (finite); ms per step "
+        f"{[round(t, 2) for t in times]} (CUDA events; the first warms up);"
+        f" peak memory {peak:.2f} GiB; flash launches forward {fwd}, "
+        f"backward {bwd} ({calls} attention calls a forward)")
+    del params, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def train_attention_families(dev) -> tuple:
+    """Phase y: stablelm-3b and whisper-medium through launch/train.py at
+    full width with a resume, their step times and profiles; mixtral-8x7b,
+    zamba2-7b and llava-next-mistral-7b at full width with fewer layers.
+    Returns (flash forward launches, backward launches) of the runs."""
+    fwd = bwd = 0
+    for arch, batch, seq, steps, every, resume_at, cut in TRAIN_FULL:
+        params, f, b = _train_full(dev, arch, batch, seq, steps, every,
+                                   resume_at, cut)
+        fwd, bwd = fwd + f, bwd + b
+        from repro_torch.configs import get_config
+        _train_step_numbers(dev, get_config(arch), params, batch, seq, steps)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, layers, batch, seq in TRAIN_CUT:
+        f, b = _train_cut(dev, arch, layers, batch, seq)
+        fwd, bwd = fwd + f, bwd + b
+    return fwd, bwd
 
 
 def _log_build(logs: dict, t0: float) -> None:
@@ -3594,9 +4144,9 @@ def main() -> int:
         f"{torch.version.cuda}")
     log(f"[device] nvidia-smi: {card}")
     t0 = time.perf_counter()
-    # The SSD backward, the slowest source, builds while phases 2-k run:
-    # phase v is the first to launch it.
-    late, late_logs = ["ssd_scan_bwd"], {}
+    # The two backward kernels, the slowest sources, build while phases
+    # 2-k run: phases v and x are the first to launch them.
+    late, late_logs = ["ssd_scan_bwd", "flash_attention_bwd"], {}
     late_build = threading.Thread(
         target=lambda: late_logs.update(_build.build_all(late)))
     late_build.start()
@@ -3619,6 +4169,7 @@ def main() -> int:
         raise RuntimeError(f"building {late} failed (its error is above)")
     _log_build(late_logs, t0)
     kernels.append(timed("v", ssd_bwd_vs_plain))
+    kernels.append(timed("x", flash_bwd_vs_plain))
     launches, ts, res_seq, seq_rate = timed("3", slice_end_to_end)
     launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
                                               res_seq)
@@ -3667,12 +4218,19 @@ def main() -> int:
     launches["flash_attention"] += encdec + vlm
     launches["ssd_scan_bwd"] = timed("w", train_end_to_end)
     log(f"[launches] phase w: ssd_scan_bwd {launches['ssd_scan_bwd']}")
+    fwd_y, launches["flash_attention_bwd"] = timed(
+        "y", train_attention_families)
+    log(f"[launches] phase y: flash_attention {fwd_y}, flash_attention_bwd "
+        f"{launches['flash_attention_bwd']}")
+    launches["flash_attention"] += fwd_y
     launches["flex_score_batch_topk"] += faulted["flex_score_batch_topk"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} never launched on the path")
 
+    log(f"[time] all phases and the build: "
+        f"{time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,52 @@
+"""Run some of ``chip_smoke.py``'s phases alone, for work on one of them.
+
+Builds every kernel, then runs the named phases in the order given, with
+the settings ``chip_smoke.main`` runs them under.  It prints no result
+line and stands in for no run of ``chip_smoke.py``: the phases that
+others feed (3 to u) are not offered.  Needs a CUDA card and nvcc.  From
+the repository root:
+
+    python3 scripts/chip_phase.py x y
+"""
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+PHASES = {"g": cs.flash_vs_plain, "k": cs.ssd_vs_plain,
+          "v": cs.ssd_bwd_vs_plain, "x": cs.flash_bwd_vs_plain,
+          "w": cs.train_end_to_end, "y": cs.train_attention_families}
+
+
+def main(names) -> int:
+    if not names or any(n not in PHASES for n in names):
+        print(f"usage: chip_phase.py PHASE... (of {', '.join(PHASES)})",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_phase: no CUDA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs.log(f"[device] nvidia-smi: {cs.card_line()}")
+    t0 = time.perf_counter()
+    cs._log_build(_build.build_all(), t0)
+    for name in names:
+        t1 = time.perf_counter()
+        PHASES[name](torch.device("cuda"))
+        cs.log(f"[time] phase {name}: {time.perf_counter() - t1:.1f} s")
+    cs.log(f"chip_phase: phases {', '.join(names)} alone, not a smoke run")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -62,6 +62,13 @@
 // ty + 16 i (i < 4), score columns tx + 8 j (j < 8) and output columns
 // tx + 8 jj; the eight lanes of a row reduce by warp shuffles.
 //
+// Training passes an `lse` buffer: each path then also stores its rows'
+// natural log-sum-exp, m + log l from the finished online softmax, for the
+// backward kernel (flash_attention_bwd.cu) to rebuild P from.  Both kernels
+// are templates on whether they store it, and serving's null takes the
+// instance without the store, the code serving ran before (a run-time
+// null check in one instance slowed it 9% at hd 80).
+//
 // Every product is an explicit fmaf or wgmma, so the result does not
 // depend on the shared -fmad=false build flag (which the bit-exact
 // flex_score kernels need); attention is held to a tolerance, not to bits.
@@ -97,6 +104,13 @@ __device__ __forceinline__ int2 key_tiles(int q0, int bq, int Sq, int Sk,
   return make_int2(lo_col > 0 ? lo_col / BK : 0, hi);
 }
 
+// A row's natural log-sum-exp of its scaled scores from its running max m
+// (natural units) and sum l; +inf for a row that attends to no key, so
+// that the backward's exp(scale s - lse) is 0 there, as its output is.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
@@ -119,12 +133,13 @@ __device__ __forceinline__ float sum8(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H,
-              int G, int Sq, int Sk, int causal, int window, float scale,
-              Strides qs, Strides ks, Strides vs, Strides os) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int H, int G, int Sq, int Sk,
+              int causal, int window, float scale, Strides qs, Strides ks,
+              Strides vs, Strides os) {
   constexpr int LD = HD + 1;
   constexpr int DJ = HD / 8;
   extern __shared__ float smem[];
@@ -234,6 +249,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj)
       op[row * os.s + tx + 8 * jj] = __fdiv_rn(acc[i][jj], denom);
+    if constexpr (LSE)
+      if (tx == 0)
+        lse[static_cast<long long>(blockIdx.y) * Sq + row] =
+            row_lse(m[i], l[i]);
   }
 }
 
@@ -496,14 +515,14 @@ struct Maps {
   int q, k, v, o;   // Coords permutation of each map
 };
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
-               const __grid_constant__ CUtensorMap omap, Maps perm, int B,
-               int H, int G, int Sq, int Sk, int causal, int window,
-               float scale2) {
+               const __grid_constant__ CUtensorMap omap, Maps perm,
+               float* __restrict__ lse, int B, int H, int G, int Sq, int Sk,
+               int causal, int window, float scale2) {
   using L = Smem<HD>;
   constexpr int NB = HD / BOX;   // boxes a row: k-steps of Q.K^T
   extern __shared__ uint8_t smem_raw[];
@@ -688,6 +707,17 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
       mbar_arrive(bar_empty + 8 * s);
     }
 
+    if constexpr (LSE) {
+      if (live && t == 0) {
+        // m and l are in log2 units: lse = (m + log2 l) ln 2.
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (row[r] < Sq)
+            lse[static_cast<long long>(bh) * Sq + row[r]] =
+                l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
+                           : __int_as_float(0x7f800000);
+      }
+    }
     if (live) {
       // Normalise and write O, bf16, into this consumer's slice of the Q
       // tile (its last reader was this warpgroup's final Q.K^T), in the
@@ -803,9 +833,10 @@ int make_map(CUtensorMap* map, int* perm, const void* ptr, int B, int H,
   return res == CUDA_SUCCESS ? 0 : -2;
 }
 
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int KV, int Sq, int Sk, int causal, int window,
+template <int HD, bool LSE>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int KV, int Sq, int Sk, int causal,
+                int window,
                 Strides qs, Strides ks, Strides vs, Strides os,
                 cudaStream_t stream) {
   CUtensorMap qm, km, vm, om;
@@ -819,78 +850,100 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wg::flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wg::flash_fwd_bf16<HD, LSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int n_qt = (Sq + wg::BQ - 1) / wg::BQ;
   const float scale2 = 1.0f / sqrtf((float)HD) * 1.4426950408889634f;
-  wg::flash_fwd_bf16<HD><<<n_qt * B * H, wg::THREADS, bytes, stream>>>(
-      qm, km, vm, om, perm, B, H, H / KV, Sq, Sk, causal, window, scale2);
+  wg::flash_fwd_bf16<HD, LSE><<<n_qt * B * H, wg::THREADS, bytes, stream>>>(
+      qm, km, vm, om, perm, lse, B, H, H / KV, Sq, Sk, causal, window,
+      scale2);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int B, int H, int KV, int Sq, int Sk, int causal, int window,
-           Strides qs, Strides ks, Strides vs, Strides os,
-           cudaStream_t stream) {
-  if (dtype == 1)
-    return launch_bf16<HD>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, qs,
-                           ks, vs, os, stream);
+template <int HD, bool LSE>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int KV, int Sq, int Sk, int causal,
+               int window, Strides qs, Strides ks, Strides vs, Strides os,
+               cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   const float scale = 1.0f / sqrtf((float)HD);
   constexpr int bytes = f32_smem_floats<HD>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  flash_fwd_f32<HD><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_f32<HD, LSE><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, H / KV, Sq,
-      Sk, causal, window, scale, qs, ks, vs, os);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, H / KV,
+      Sq, Sk, causal, window, scale, qs, ks, vs, os);
   return (int)cudaGetLastError();
+}
+
+// Each kernel is built twice: with the lse store (training) and without
+// it, so serving's instance is the code it was before the store existed.
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int H, int KV, int Sq, int Sk, int causal,
+           int window, Strides qs, Strides ks, Strides vs, Strides os,
+           cudaStream_t stream) {
+  if (dtype == 1)
+    return lse ? launch_bf16<HD, true>(q, k, v, o, lse, B, H, KV, Sq, Sk,
+                                       causal, window, qs, ks, vs, os, stream)
+               : launch_bf16<HD, false>(q, k, v, o, lse, B, H, KV, Sq, Sk,
+                                        causal, window, qs, ks, vs, os,
+                                        stream);
+  return lse ? launch_f32<HD, true>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal,
+                                    window, qs, ks, vs, os, stream)
+             : launch_f32<HD, false>(q, k, v, o, lse, B, H, KV, Sq, Sk,
+                                     causal, window, qs, ks, vs, os, stream);
 }
 
 }  // namespace
 
 // q (B, H, Sq, hd), k and v (B, KV, Sk, hd), o (B, H, Sq, hd), each given by
 // its (b, h, s) element strides with a unit head-dim stride (and, in
-// bfloat16, 16-byte aligned data and strides, as TMA requires).  dtype 0 is
-// float32, 1 bfloat16.  Returns 0, a CUDA error code, -1 for an unsupported
-// hd or dtype, or -2 if a bf16 tensor map could not be made.
+// bfloat16, 16-byte aligned data and strides, as TMA requires).  lse, if not
+// null, is a contiguous float32 (B, H, Sq): each row's natural log of the
+// sum of exp(scale s) over the keys it attends to (+inf for none), which
+// the backward (flash_attention_bwd.cu) reads; with null nothing more is
+// written.  dtype 0 is float32, 1 bfloat16.  Returns 0, a CUDA error code,
+// -1 for an unsupported hd or dtype, or -2 if a bf16 tensor map could not
+// be made.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int KV, int Sq, int Sk, int hd, int causal, int window,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    void* stream) {
+    void* lse, void* stream) {
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return -1;
   switch (hd) {
     case 32:
-      return launch<32>(dtype, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                        qs, ks, vs, os, st);
+      return launch<32>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+                        Sq, Sk, causal, window, qs, ks, vs, os, st);
     case 64:
-      return launch<64>(dtype, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                        qs, ks, vs, os, st);
+      return launch<64>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+                        Sq, Sk, causal, window, qs, ks, vs, os, st);
     case 80:
-      return launch<80>(dtype, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                        qs, ks, vs, os, st);
+      return launch<80>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+                        Sq, Sk, causal, window, qs, ks, vs, os, st);
     case 112:
-      return launch<112>(dtype, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                         qs, ks, vs, os, st);
+      return launch<112>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+                         Sq, Sk, causal, window, qs, ks, vs, os, st);
     case 128:
-      return launch<128>(dtype, q, k, v, o, B, H, KV, Sq, Sk, causal, window,
-                         qs, ks, vs, os, st);
+      return launch<128>(dtype, q, k, v, o, static_cast<float*>(lse), B, H, KV,
+                         Sq, Sk, causal, window, qs, ks, vs, os, st);
     default:
       return -1;
   }

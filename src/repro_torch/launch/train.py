@@ -10,8 +10,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
       --smoke --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
       --resume --device cpu
-  # full width on the card:
+  # full width on the card (any family: the attention families through
+  # the flash-attention backward kernel):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --steps 8 --batch 8 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --steps 8 --batch 8 --seq 2048
 
 Same arguments, defaults and log lines as the reference, plus
@@ -20,8 +23,9 @@ Same arguments, defaults and log lines as the reference, plus
 than the reference's ``PRNGKey(seed)``).  Checkpoints hold ``(params,
 opt_state)`` in the reference's tree layout (``convert.model_tree``; the
 optimizer's moments likewise) with ``extra = {"data_index", "loss"}``,
-so either package resumes from the other's.  ``--mesh`` raises: sharded
-training is not ported yet.
+so either package resumes from the other's.  The step donates the old
+optimizer state, as the reference's jitted step does.  ``--mesh``
+raises: sharded training is not ported yet.
 """
 from __future__ import annotations
 
@@ -65,7 +69,12 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     model = build_model(cfg, remat=not smoke)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                           total_steps=steps)
-    step_fn = make_train_step(model, opt_cfg, accum_steps=accum)
+    # The old optimizer state is donated, as the reference's jitted step
+    # donates it: stablelm-3b's float32 moments are 22.4 GB, and held
+    # twice at the step's end they would not fit one 80 GB card beside the
+    # weights, their stacked copy and the gradients.
+    step_fn = make_train_step(model, opt_cfg, accum_steps=accum,
+                              donate=True)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

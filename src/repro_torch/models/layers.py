@@ -18,8 +18,10 @@ thread-local flag.  A CPU tensor takes the plain version whatever the
 flag; on a CUDA tensor inside ``no_kernels()``, ``chunked_attention``
 and ``models.ssm.ssm_apply`` raise, since the card has no plain path.
 The reference's ``loss`` enters ``no_kernels()`` because its Pallas
-kernels have no VJP; the port's ``loss`` does not: its SSD scan carries
-its own backward kernel and its flash attention raises under grad.
+kernels have no VJP; the port's ``loss`` does not: its SSD scan and its
+flash attention carry their own backward kernels
+(``kernels.ssd_scan.ops.SSDScan``,
+``kernels.flash_attention.ops.FlashAttention``).
 """
 from __future__ import annotations
 

@@ -50,10 +50,12 @@ or decoder layer, a transformer layer, or a Mamba2 layer with the
 hybrid's shared block where it runs) is recomputed in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) wherever the reference wraps
 it in ``jax.checkpoint``.  Unlike the reference's, the port's ``loss``
-does not enter ``layers.no_kernels()``: on the card the SSD scan runs
-its kernel with the hand-written backward, and flash attention raises
-under grad (its backward is not written yet).  Gradients come from
-autograd over the module's parameters (``train.train_step``).
+does not enter ``layers.no_kernels()``: on the card the SSD scan and
+flash attention run their kernels with hand-written backward kernels
+(``SSDScan``, ``FlashAttention``).  Under ``remat`` each layer's
+attention forward runs twice a step (once forward, once recomputed) and
+its backward once.  Gradients come from autograd over the module's
+parameters (``train.train_step``).
 """
 from __future__ import annotations
 

@@ -17,6 +17,13 @@ from repro_torch.core.numerics import fma
 
 Params = Dict[str, torch.Tensor]
 
+# Elements of one piece of a leaf's element-wise update.  ``fma`` works in
+# float64, so a whole leaf at once (stablelm-3b's stacked MLP weights are
+# 566 M elements, 4.2 GiB a float64 temporary) would take tens of GiB;
+# a piece of 2^26 takes ~3.  Pieces give the same bits: every operation is
+# element-wise.
+PIECE = 1 << 26
+
 
 class AdamWConfig(NamedTuple):
     lr: float = 3e-4
@@ -70,8 +77,16 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
-                 params: Params) -> Tuple[Params, AdamWState, torch.Tensor]:
-    """Returns (new_params, new_state, grad_norm)."""
+                 params: Params, *, donate: bool = False
+                 ) -> Tuple[Params, AdamWState, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm).
+
+    With ``donate`` the new moments are written into ``state``'s own
+    tensors, leaf by leaf, which the new state then holds: the old state
+    is used up, as the reference's jitted step donates it
+    (``donate_argnums``), and the moments are not held twice at the
+    step's end.
+    """
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -81,13 +96,29 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     b2c = 1.0 - torch.pow(cfg.b2, step.to(torch.float32))
     new_p, new_m, new_v = {}, {}, {}
     for k in sorted(params):
-        p = params[k]
-        g = grads[k].float() * scale
-        m = fma(cfg.b1, state.mu[k], (1.0 - cfg.b1) * g)
-        v = fma(cfg.b2, state.nu[k], (1.0 - cfg.b2) * torch.square(g))
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.dim() >= 2:   # decoupled weight decay on matrices only
-            delta = fma(cfg.weight_decay, p.float(), delta)
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k], new_v[k] = m, v
+        p, g, mu, nu = params[k], grads[k], state.mu[k], state.nu[k]
+        decay = p.dim() >= 2   # decoupled weight decay on matrices only
+        out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+               for t in ((p,) if donate else (p, mu, nu))]
+        out += [mu, nu] if donate else []
+        flat = [t.reshape(-1) for t in (p, g, mu, nu)]
+        outs = [t.view(-1) for t in out]   # a donated moment is contiguous
+        for i in range(0, p.numel(), PIECE):   # a small leaf: one piece
+            piece = _update(cfg, *(t[i:i + PIECE] for t in flat), decay,
+                            scale, lr, b1c, b2c)
+            for dst, src in zip(outs, piece):
+                dst[i:i + PIECE].copy_(src)
+        new_p[k], new_m[k], new_v[k] = out
     return new_p, AdamWState(step=step, mu=new_m, nu=new_v), gnorm
+
+
+def _update(cfg: AdamWConfig, p, g, mu, nu, decay: bool, scale, lr, b1c,
+            b2c):
+    """(new p, new mu, new nu) of one leaf, or one piece of one."""
+    g = g.float() * scale
+    m = fma(cfg.b1, mu, (1.0 - cfg.b1) * g)
+    v = fma(cfg.b2, nu, (1.0 - cfg.b2) * torch.square(g))
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    if decay:
+        delta = fma(cfg.weight_decay, p.float(), delta)
+    return (p.float() - lr * delta).to(p.dtype), m, v

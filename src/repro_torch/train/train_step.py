@@ -112,14 +112,17 @@ def _apply(params, new: Dict[str, torch.Tensor]):
     return new
 
 
-def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1):
+def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1,
+                    *, donate: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; ``metrics`` holds ``loss`` and ``grad_norm``
     (and the loss's own metrics without accumulation) as 0-d tensors
     (nothing waits for the device).
 
     With ``accum_steps`` > 1 the batch's leading axis is split into that
-    many microbatches, whose gradients are averaged in float32.
+    many microbatches, whose gradients are averaged in float32.  With
+    ``donate`` the step uses up ``opt_state`` (``adamw_update``'s
+    ``donate``), as the reference's trainer donates it to its jitted step.
     """
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
@@ -142,7 +145,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1):
                 losses.append(loss_i)
             loss, metrics = torch.stack(losses).mean(), {}
         new, opt_state, gnorm = adamw_update(opt_cfg, grads, opt_state,
-                                             optimizer_view(params))
+                                             optimizer_view(params),
+                                             donate=donate)
         return _apply(params, new), opt_state, {"loss": loss,
                                                 "grad_norm": gnorm,
                                                 **metrics}

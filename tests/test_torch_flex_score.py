@@ -147,7 +147,8 @@ def test_build_names_the_hopper_target_and_no_contraction():
     from repro_torch.kernels import _build
     assert set(_build.sources()) == {"flex_score", "flex_score_admit",
                                      "flex_score_batch", "flash_attention",
-                                     "ssd_scan", "ssd_scan_bwd"}
+                                     "flash_attention_bwd", "ssd_scan",
+                                     "ssd_scan_bwd"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS

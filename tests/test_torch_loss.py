@@ -11,8 +11,8 @@ Tolerances: the loss and its metrics within rtol 1e-5; each gradient leaf
 within 1e-4 of its own largest magnitude (float32 sums in other orders:
 XLA fuses and reorders; measured within 3e-6).  ``_xent`` against the
 reference's with masked labels and the vocab padding at -1e30, rtol
-1e-6.  The flag ``no_kernels`` and the card's raises use CPU tensors that
-report themselves as CUDA ones.
+1e-6.  The flag ``no_kernels``, the card's raises and the flash call's
+route under grad use CPU tensors that report themselves as CUDA ones.
 """
 import dataclasses
 
@@ -29,8 +29,8 @@ from repro.train.data import synthetic_batch as j_batch
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import (model_params_from_numpy,
                                  model_params_to_numpy, model_tree)
-from repro_torch.kernels.flash_attention.ops import (FlashBackwardMissing,
-                                                     flash_attention)
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import build_model, kernels_allowed, no_kernels
 from repro_torch.models import layers as L
 from repro_torch.models.model import _xent
@@ -171,7 +171,16 @@ def test_no_kernels_flag_and_card_raises():
     assert kernels_allowed()
 
 
-def test_flash_raises_under_grad_on_the_card():
+def test_flash_under_grad_on_the_card_takes_the_function(monkeypatch):
+    """The call that raised before the backward kernel existed now goes
+    through ``FlashAttention``, whose backward is that kernel."""
+    seen = []
+
+    def apply(*args):
+        seen.append(args)
+        return "out", "lse"
+
+    monkeypatch.setattr(flash_ops.FlashAttention, "apply", apply)
     q = torch.randn(1, 8, 2, 16).as_subclass(_OnCard).requires_grad_()
-    with pytest.raises(FlashBackwardMissing, match="flash backward"):
-        flash_attention(q, q, q)
+    assert flash_attention(q, q, q) == "out"
+    assert len(seen) == 1 and seen[0][3:] == (True, 0)
