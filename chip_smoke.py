@@ -259,8 +259,11 @@ phase w:
      stablelm-3b's and whisper's encoder and cross shapes (eager, and
      replayed from a CUDA graph) beside the bound (10 hd flops a live
      pair at the bf16 peak), ``attention_bwd_ref``, the backward of
-     ``scaled_dot_product_attention`` alone and the forward with and
-     without lse; each of the three kernels' time in a profiled call.
+     ``scaled_dot_product_attention`` alone (eager, and replayed as its
+     forward and backward less its forward) and the forward with and
+     without lse; each of the three kernels' time in a profiled call,
+     and the two wgmma kernels' rates over the products they issue
+     (8 and 6 hd flops a live pair).
   y. ``launch.train.train`` on stablelm-3b at its published widths (32
      layers, d_model 2560, hd 80, vocab 50,304), bf16, random weights,
      B 8 x S 2048, 8 steps with checkpoints every 4 and a resume from
@@ -2824,7 +2827,7 @@ def _smoke_against_cpu(dev, arch: str) -> None:
 # Kernel names of the port's prefill kernels, and of the bf16 SSD and
 # flash-attention backwards', in a profiler trace.
 PORT_KERNELS = {"flash_attention": ("flash_fwd_",),
-                "flash_attention_bwd": ("bwd_delta", "dkv_bf16", "dq_bf16"),
+                "flash_attention_bwd": ("bwd_delta", "dkv_wgmma", "dq_wgmma"),
                 "ssd_scan": ("chunk_state", "state_pass", "chunk_scan",
                              "ssd_fwd"),
                 "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_pass",
@@ -3784,13 +3787,21 @@ def flash_bwd_vs_plain(dev) -> dict:
         plain_ms = _event_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
                                                        **mask), reps=3)
         # SDPA's backward alone, on (B, H, S, hd) copies (its graph kept
-        # between calls), for the library column.
+        # between calls), for the library column; and replayed from a
+        # CUDA graph, as its forward and backward less its forward.
         qs, ks, vs = (t.contiguous().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
         dos = do.contiguous()
         lib_ms = _event_ms(lambda: torch.autograd.grad(
             out, (qs, ks, vs), dos, retain_graph=True), reps=10)
-        del out, qs, ks, vs, dos
+        del out
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=causal)
+        lib_both = _median_ms(lambda: torch.autograd.grad(
+            sdpa(), (qs, ks, vs), dos), 5, 10)
+        lib_fwd = _median_ms(sdpa, 5, 10)
+        lib_graph = lib_both - lib_fwd
+        del qs, ks, vs, dos
         bound_ms, bound_by = _flash_bwd_bound(b, h, kv, sq, sk, hd, causal,
                                               window, 2)
         timed[label] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
@@ -3798,14 +3809,25 @@ def flash_bwd_vs_plain(dev) -> dict:
             f"hd={hd} causal={causal} bf16: backward kernel {ms:.4f} ms "
             f"eager (graph replay {graph_ms:.4f} ms), plain "
             f"(attention_bwd_ref) {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention's backward {lib_ms:.4f} ms eager;"
+            f"scaled_dot_product_attention's backward {lib_ms:.4f} ms eager"
+            f" ({lib_graph:.4f} replayed: {lib_both:.4f} forward and "
+            f"backward less {lib_fwd:.4f} forward); kernel over SDPA "
+            f"{ms / lib_ms:.4f} eager, {graph_ms / lib_graph:.4f} replayed;"
             f" bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.4f} of"
             f" it eager, {bound_ms / graph_ms:.4f} replayed; the forward "
             f"(row 4) {f_ms:.4f} ms eager, {f_graph:.4f} replayed without "
             f"lse, {fl_ms:.4f} / {fl_graph:.4f} with it")
         parts = _flash_bwd_kernels(run)
+        pairs = b * h * _attn_pairs(sq, sk, causal, window)
+        issued = {"dkv_wgmma": 8 * hd * pairs, "dq_wgmma": 6 * hd * pairs}
         log(f"[flash_bwd] {label} profiled call: "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+            + "; rates over the issued products: "
+            + ", ".join(f"{k} {issued[k] / parts[k] / 1e9:.1f} TFLOP/s"
+                        for k in issued if k in parts)
+            + f"; the call {14 * hd * pairs / graph_ms / 1e9:.1f} TFLOP/s "
+            f"replayed ({14 * hd * pairs / 1e9:.1f} GFLOP issued, "
+            f"{10 * hd * pairs / 1e9:.1f} in the bound)")
         del q, k, v, do, o, lse, grads
         gc.collect()
         torch.cuda.empty_cache()
@@ -4111,7 +4133,8 @@ def train_attention_families(dev) -> tuple:
 
 def _log_build(logs: dict, t0: float) -> None:
     """The built kernels, the time since t0, and each kernel function's
-    registers, shared memory and spills as ptxas reports them."""
+    registers, shared memory and spills as ptxas reports them, with any
+    warning that it serialised wgmma products."""
     log(f"[device] built {sorted(logs)} in {time.perf_counter() - t0:.2f} "
         f"s")
     for name, text in logs.items():
@@ -4120,6 +4143,7 @@ def _log_build(logs: dict, t0: float) -> None:
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "smem" in line or (
+                    "Performance Loss" in line) or (
                     "spill" in line and " 0 bytes spill stores" not in line):
                 log(f"[device]   {name}: {entry}: {line.strip()}")
 

@@ -13,7 +13,7 @@ tree, parent, ...), replayed from CUDA graphs: the serving path's shapes
 whisper-medium's encoder and cross attention.  The forward of a checkout
 whose entry point takes an ``lse`` pointer before the stream is called
 with null, as serving calls it, and once more with a buffer, as training
-does.  It prints one line a shape with the medians and each round's
+does (the parent too, when its entry point takes one).  It prints one line a shape with the medians and each round's
 times, and the card's name and power limit.  Needs one CUDA card and
 nvcc.
 """
@@ -112,15 +112,24 @@ def main() -> int:
         runs = {"parent": lambda: _call(*parent, q, k, v, o, causal),
                 "tree": lambda: _call(*tree, q, k, v, o, causal),
                 "tree+lse": lambda: _call(*tree, q, k, v, o, causal, lse)}
+        order = ["parent", "tree", "tree+lse", "tree", "parent"]
+        if parent[1]:
+            runs["parent+lse"] = lambda: _call(*parent, q, k, v, o, causal,
+                                               lse)
+            order += ["parent+lse", "tree+lse", "parent+lse"]
         times = {name: [] for name in runs}
         for _ in range(ROUNDS):
-            for name in ("parent", "tree", "tree+lse", "tree", "parent"):
+            for name in order:
                 times[name].append(_replay_ms(runs[name]))
         med = {name: statistics.median(ts) for name, ts in times.items()}
+        with_lse = (f", with lse {med['tree+lse']:.4f}"
+                    + (f" against the parent's {med['parent+lse']:.4f} "
+                       f"({med['tree+lse'] / med['parent+lse']:.4f})"
+                       if "parent+lse" in med else ""))
         print(f"[flash_fwd_ab] {label}: replayed ms, median of "
               f"{len(times['parent'])}: parent {med['parent']:.4f}, this "
               f"tree {med['tree']:.4f} ({med['tree'] / med['parent']:.4f} "
-              f"of the parent), with lse {med['tree+lse']:.4f}; rounds "
+              f"of the parent){with_lse}; rounds "
               + "; ".join(f"{n} " + " ".join(f"{t:.4f}" for t in ts)
                           for n, ts in times.items()), flush=True)
     print(f"[flash_fwd_ab] {card}")

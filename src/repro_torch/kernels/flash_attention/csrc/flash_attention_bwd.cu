@@ -18,12 +18,12 @@
 //
 // Three kernels a call and no atomics, so two calls are bit-equal:
 //   * bwd_delta: D, a warp a row, its lanes summed by xor shuffles;
-//   * dK, dV: a block per (b, kv head, 64-key tile).  It loops over the G
+//   * dK, dV: a block per (b, kv head, key tile).  It loops over the G
 //     query heads in order and, for each, over the query tiles that hold an
 //     unmasked pair with its keys (the forward's `key_tiles` turned around),
 //     rebuilding S, P and dP from q, dO and lse; dK and dV stay in
-//     registers;
-//   * dQ: a block per (b, h, 64-row query tile) over its live key tiles,
+//     registers and each element is written once, by one thread;
+//   * dQ: a block per (b, h, query tile) over its live key tiles,
 //     rebuilding S, P and dP again: two more products a pair than an
 //     atomic dQ, for determinism and no float32 scratch of dQ.
 // Both grids start with the tiles that have the most causal work.
@@ -32,44 +32,72 @@
 // causal, bf16): S, dP, dV, dK and dQ are 2 hd flops each a live pair,
 // 10 hd in all: 8 x 32 x 2048 x 2049 / 2 x 800 = 430 GFLOP, 0.43 ms at
 // 989 TFLOP/s; q, k, v, o, dO, dq, dk and dv once are 0.67 GB, 0.20 ms
-// at 3.35 TB/s.  Operations bound it; this design issues 14 hd a pair.
+// at 3.35 TB/s.  Operations bound it; this design issues 14 hd a pair
+// (8 in the dK/dV kernel, 6 in the dQ kernel).
 //
-// bfloat16: every product on the tensor cores, mma.sync m16n8k16 (bf16 in,
-// float32 sums), fragments by ldmatrix from shared tiles padded by 8
-// columns (conflict-free), filled by cp.async 16 bytes at a time (zeros
-// past the ends), the next tile's copies in flight during the current
-// one's products.  Each of a dK/dV block's 4 warps owns 16 keys: S^T =
-// K Q^T and dP^T = V dO^T come out with keys as rows, so P^T and dS^T are
-// already the A operand of dV += P^T dO and dK += dS^T Q, and dO and Q
-// are B operands by ldmatrix.trans.  A dQ block's warps own 16 query rows;
-// dS is the A operand of dQ += dS K.  P and dS are rounded once to bf16 as
-// they enter their products (S and dP leave the tensor cores in float32;
-// the products of bf16 inputs are exact).  P = 2^(S scale log2e - lse
-// log2e) is one fma and one ex2.  float32: the CUDA cores, the same
-// blocks, explicit fmaf throughout.
+// bfloat16: both heavy kernels are built as the forward's bf16 kernel is
+// (wgmma, a TMA ring, warp specialisation; the building blocks are in
+// hopper.cuh), so that no block-wide barrier or synchronous copy stands
+// between one step's products and the next.
+//   * dK/dV: three warpgroups a block of 128 keys.  Two consumers own 64
+//     keys each; the producer (setmaxnreg lowered to 40) loads K and V once
+//     and keeps (Q, dO) tiles of QT queries in flight in a ring of four
+//     stages, each with a full and an empty mbarrier: one thread issues the
+//     TMA copies, and warps 1-3, a step each in turn, copy the step's lse
+//     (in log2 units) and D beside them (three warps, so that a load's
+//     latency spans three steps).  S^T = K Q^T and dP^T = V dO^T are wgmma
+//     m64nQTk16 with both operands K-major in shared memory; they leave
+//     keys on the rows,
+//     so P^T and dS^T become the register A operand of dV += P^T dO and
+//     dK += dS^T Q (wgmma m64n{hd}k16) in place, with dO and Q read
+//     MN-major from the same stage: one copy, two reads.  QT is 64 up to
+//     hd 80 and 32 above, where dK and dV take 112 or 128 registers a
+//     thread.
+//   * dQ: the same three warpgroups a block of 128 query rows.  Q and dO
+//     are loaded once, K and V tiles of 64 keys ride the ring; S = Q K^T and
+//     dP = dO V^T are ss m64n64k16, dQ += dS K is rs with K read MN-major.
+//   * Tensor maps over the strided (B, S, H, hd) views are built on the host
+//     once a call for both kernels, with the forward's 16-column boxes in
+//     the 32-byte swizzle; their zero fill covers ragged S, and boxes wholly
+//     past the end are not loaded (no consumer reads them).
+//   * While one consumer runs its element-wise work the other's products
+//     use the tensor cores.  Within a consumer, P is computed while dP is
+//     still on them (two commit groups, wait for the first), dV is issued
+//     before dS is computed, and a step's last products (dK; dQ) run on
+//     while the next step's first are issued: the stage they read is
+//     released one step late.
+//   * The grid takes (b, head) pairs in groups of 8, and within a group
+//     the longest causal tiles first, so that the blocks in flight share
+//     the tiles they stream through L2.
+// S and dP leave the tensor cores in float32; P = 2^(S scale log2e - lse
+// log2e) is one fma and one ex2; P and dS are rounded once to bf16 as they
+// become A fragments; dK and dQ are scaled once at the store.  A consumer
+// skips the products of a step masked for all of its 64 rows.
+//
+// The element-wise work, not the tensor cores, sets the pace, so it is
+// kept short: the mask is applied element by element only where a warp's
+// 16 rows meet an edge, in a branch of its own that is uniform across the
+// warp; S^T, dP^T, S and dP stay allocated across steps, each step's
+// first k-step overwriting them; lse and D are read as float2 pairs.  (On an H100, with the mask's
+// compares folded into every element and the scores zeroed each step, a
+// call took 1.28x as long at stablelm-3b's training shape.)
+//
+// float32: the CUDA cores, 4-warp blocks of 64 keys (dK/dV) or 64 query
+// rows (dQ), explicit fmaf throughout.
 //
 // The launcher requires unit head-dim strides and, in bfloat16, 16-byte
-// aligned bases and strides of multiples of 8 elements (cp.async copies
-// 16 bytes), as the forward's TMA does.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// aligned bases and strides of multiples of 8 elements, as TMA does.
+#include "hopper.cuh"   // mbarrier, TMA and wgmma wrappers; tensor maps
 #include <math_constants.h>
-#include <stdint.h>
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int BK = 64;         // keys of a dK/dV block; keys a dQ step (bf16)
-constexpr int BQ = 64;         // query rows of a dQ block
-constexpr int THREADS = 128;   // 4 warps
+constexpr int BK = 64;         // float32: keys of a dK/dV block
+constexpr int BQ = 64;         // float32: query rows of a dQ block
+constexpr int THREADS = 128;   // float32: 4 warps
 constexpr int QF = 32;         // float32 dK/dV: queries a step
 constexpr int KF = 32;         // float32 dQ: keys a step
 constexpr float LOG2E = 1.4426950408889634f;
-
-struct Strides {
-  long long b, h, s;  // in elements; the head-dim stride is 1
-};
 
 struct Args {
   const void* q;
@@ -418,425 +446,540 @@ __global__ void __launch_bounds__(THREADS) dq_f32(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16 on the tensor cores
+// bfloat16: wgmma, TMA ring, warp specialisation
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace wb {
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+using namespace wg;
+
+constexpr int BKV = 128;       // keys of a dK/dV block (two consumers)
+constexpr int BQ = 128;        // query rows of a dQ block (two consumers)
+constexpr int KT = 64;         // keys a dQ step; rows of a K or V box
+constexpr int CR = 64;         // rows a consumer owns
+constexpr int STAGES = 4;      // ring depth
+constexpr int GH = 8;          // (b, head) pairs of a group of the grid
+constexpr int THREADS = 384;   // producer + two consumer warpgroups
+
+// dK/dV's query step, and the rows of a Q or dO box: 64 up to hd 80, 32
+// above (dK and dV hold hd floats a thread, S^T and dP^T QT / 2 each).
+template <int HD>
+constexpr int QT = HD <= 80 ? 64 : 32;
+
+struct Perm {
+  int q, k, v, o;   // Coords permutation of each map (o: dO)
+};
+
+// dK/dV's shared memory, in bytes from a 1024-aligned base: K and V
+// (128 rows), then the ring's Q, dO, lse (log2 units) and D stages.
+template <int HD>
+struct DkvSmem {
+  static constexpr int KV_BYTES = BKV * HD * 2;
+  static constexpr int QS_BYTES = QT<HD> * HD * 2;   // a Q or dO stage
+  static constexpr int K = 0;
+  static constexpr int V = K + KV_BYTES;
+  static constexpr int Q = V + KV_BYTES;
+  static constexpr int O = Q + STAGES * QS_BYTES;
+  static constexpr int LSE = O + STAGES * QS_BYTES;
+  static constexpr int DEL = LSE + STAGES * QT<HD> * 4;
+  static constexpr int BAR = DEL + STAGES * QT<HD> * 4;  // full, empty, kv
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+};
+
+// dQ's: Q and dO (128 rows), then the ring's K and V stages.
+template <int HD>
+struct DqSmem {
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KS_BYTES = KT * HD * 2;   // a K or V stage
+  static constexpr int Q = 0;
+  static constexpr int O = Q + Q_BYTES;
+  static constexpr int K = O + Q_BYTES;
+  static constexpr int V = K + STAGES * KS_BYTES;
+  static constexpr int BAR = V + STAGES * KS_BYTES;  // full, empty, q
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+};
+
+// K-major descriptor of box j of a tile of `rows` rows, from row r0.
+__device__ __forceinline__ uint64_t kmaj(uint32_t tile, int rows, int j,
+                                         int r0) {
+  return desc(tile + (j * rows + r0) * ROW_BYTES, 16, 8 * ROW_BYTES);
 }
 
-// d += a (16 x 16, row) . b (16 x 8, col); with g = lane / 4, t = lane % 4:
-// a = {(g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..)},
-// b = {(k 2t.., n g), (k 2t + 8.., n g)},
-// d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// MN-major descriptor of k-step kk (rows 16 kk ..) of a tile of `rows`
+// rows: 16-column atoms one box apart.
+__device__ __forceinline__ uint64_t mnmaj(uint32_t tile, int rows, int kk) {
+  return desc(tile + kk * 16 * ROW_BYTES, rows * ROW_BYTES, 8 * ROW_BYTES);
 }
 
-// Four 8 x 8 b16 matrices: lane l gives the address of row l % 8 of
-// matrix l / 8; register i of lane (g, t) holds (row g; columns 2t, 2t + 1)
-// of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// The same, transposed: register i of lane (g, t) holds (rows 2t, 2t + 1;
-// column g) of matrix i.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Block i's (tile rank, pair) in a grid of n_pairs (b, head) pairs by
+// n_tiles tiles: groups of GH pairs in turn and, within a group, tile rank
+// by tile rank, every pair of a rank before the next.  The blocks in flight
+// together (about a wave, 132 of them) then stream the tiles of a few heads,
+// which stay in L2, and the group's longest causal tiles start first.
+__device__ __forceinline__ int2 grid_order(int i, int n_pairs, int n_tiles) {
+  const int g = i / (GH * n_tiles);
+  const int size = min(GH, n_pairs - g * GH);
+  const int local = i - g * GH * n_tiles;
+  return make_int2(local / size, g * GH + local % size);
 }
 
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x in one instruction (denormal results flush to 0; 2^-inf = 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Rows [r0, r0 + n) of a (.., S, HD) bf16 slice at `base` (row stride ss)
-// into shared [n][HD + 8]; rows at or past S as zeros.
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
-                                          long long ss, int r0, int n, int S,
-                                          int tid) {
-  constexpr int PER = HD / 8, LDS = HD + 8;
-  for (int e = tid; e < n * PER; e += THREADS) {
-    const int r = e / PER, c = e - r * PER;
-    const bool valid = r0 + r < S;
-    const bf16* src = valid ? base + (r0 + r) * ss + 8 * c : base;
-    cp16(dst + r * LDS + 8 * c, src, valid);
-  }
-}
-
-// A fragment (rows 16 w.., k-step ks) of a [..][HD + 8] tile.
-template <int HD>
-__device__ __forceinline__ void a_frag(uint32_t (&r)[4], const bf16* tile,
-                                       int row0, int ks, int lane) {
-  ldsm_x4(r, tile + (row0 + (lane & 15)) * (HD + 8) + 16 * ks +
-                 8 * (lane >> 4));
-}
-
-// B fragments of n-tiles 2 np, 2 np + 1 (rows of the tile are n, columns
-// k) at k-step ks: {b0, b1} of the first, {b2, b3} of the second.
-template <int HD>
-__device__ __forceinline__ void b_frag_nk(uint32_t (&r)[4], const bf16* tile,
-                                          int np, int ks, int lane) {
-  ldsm_x4(r, tile + (16 * np + (lane & 7) + 8 * (lane >> 4)) * (HD + 8) +
-                 16 * ks + 8 * ((lane >> 3) & 1));
-}
-
-// The same with rows of the tile k and columns n (ldmatrix.trans).
-template <int HD>
-__device__ __forceinline__ void b_frag_kn(uint32_t (&r)[4], const bf16* tile,
-                                          int np, int ks, int lane) {
-  ldsm_x4_t(r, tile + (16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                          (HD + 8) +
-                   16 * np + 8 * (lane >> 4));
-}
-
-}  // namespace tc
-
-// dK/dV's query step: 64 at hd <= 80, 32 above (registers: dK and dV hold
-// hd floats a thread, S^T and dP^T the step's).
-template <int HD>
-constexpr int DKV_QT = HD <= 80 ? 64 : 32;
-
-template <int HD>
-constexpr int dkv_bf16_bytes() {
-  // K, V; Q and dO double-buffered; lse (log2 units) and D double-buffered.
-  return (2 * BK + 4 * DKV_QT<HD>) * (HD + 8) * 2 + 4 * DKV_QT<HD> * 4;
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS) dkv_bf16(const Args a) {
-  constexpr int LDS = HD + 8, QT = DKV_QT<HD>, NQ = QT / 8, ND = HD / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [BK][LDS]
-  bf16* Vs = Ks + BK * LDS;                        // [BK][LDS]
-  bf16* Qs = Vs + BK * LDS;                        // [2][QT][LDS]
-  bf16* Os = Qs + 2 * QT * LDS;                    // dO, [2][QT][LDS]
-  float* Ls = reinterpret_cast<float*>(Os + 2 * QT * LDS);   // [2][QT]
-  float* Dl = Ls + 2 * QT;                                     // [2][QT]
+__global__ void __launch_bounds__(THREADS, 1)
+dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+          const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap,
+          const __grid_constant__ CUtensorMap omap, Perm perm,
+          const Args a) {
+  using L = DkvSmem<HD>;
+  constexpr int Q_T = QT<HD>, NB = HD / BOX, SN = Q_T / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gen = smem_raw + (base - raw);   // the same bytes, generic
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t sQ = base + L::Q, sO = base + L::O;
+  float* Ls = reinterpret_cast<float*>(gen + L::LSE);   // [STAGES][QT]
+  float* Ds = reinterpret_cast<float*>(gen + L::DEL);   // [STAGES][QT]
+  const uint32_t bar_full = base + L::BAR;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_kv = bar_empty + 8 * STAGES;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_bk = a.B * a.KV;
-  const int k0 = (blockIdx.x / n_bk) * BK;
-  const int b = (blockIdx.x % n_bk) / a.KV, kvh = blockIdx.x % a.KV;
+  // Key tiles in order within a group of heads: the longest causal first.
+  const int2 at = grid_order(blockIdx.x, a.B * a.KV, (a.Sk + BKV - 1) / BKV);
+  const int k0 = at.x * BKV;
+  const int b = at.y / a.KV, kvh = at.y % a.KV;
   const int G = a.H / a.KV;
-  const float scale2 = a.scale * LOG2E;
-  const int2 qr = query_tiles(k0, BK, QT, a.Sq, a.Sk, a.causal, a.window);
+  const int2 qr = query_tiles(k0, BKV, Q_T, a.Sq, a.Sk, a.causal, a.window);
   const int nq = qr.y - qr.x, n_it = G * nq;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-
   // Step it: query head kvh G + it / nq, query tile qr.x + it % nq.
-  auto issue = [&](int it, int buf) {
-    const int h = kvh * G + it / nq, q0 = (qr.x + it % nq) * QT;
-    tc::load_rows<HD>(Qs + buf * QT * LDS, q + b * a.qs.b + h * a.qs.h,
-                      a.qs.s, q0, QT, a.Sq, tid);
-    tc::load_rows<HD>(Os + buf * QT * LDS, dout + b * a.dos.b + h * a.dos.h,
-                      a.dos.s, q0, QT, a.Sq, tid);
-    const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
-    for (int r = tid; r < QT; r += THREADS) {
-      const bool in = q0 + r < a.Sq;
-      Ls[buf * QT + r] = in ? a.lse[row0 + q0 + r] * LOG2E : CUDART_INF_F;
-      Dl[buf * QT + r] = in ? a.delta[row0 + q0 + r] : 0.f;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1 + 32);   // the copies; lse and D
+      mbar_init(bar_empty + 8 * s, 2 * 128);   // every consumer thread
     }
-  };
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  if (n_it > 0) {
-    tc::load_rows<HD>(Ks, static_cast<const bf16*>(a.k) + b * a.ks.b +
-                              kvh * a.ks.h,
-                      a.ks.s, k0, BK, a.Sk, tid);
-    tc::load_rows<HD>(Vs, static_cast<const bf16*>(a.v) + b * a.vs.b +
-                              kvh * a.vs.h,
-                      a.vs.s, k0, BK, a.Sk, tid);
-    issue(0, 0);
-    tc::cp_commit();
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int kw = 16 * warp;   // this warp's keys in the tile
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      issue(it + 1, buf ^ 1);
-      tc::cp_commit();
-      tc::cp_wait<1>();
-    } else {
-      tc::cp_wait<0>();
-    }
-    __syncthreads();   // this step's tiles (and K, V) are in
-    const int q0 = (qr.x + it % nq) * QT;
-    const bf16* Qb = Qs + buf * QT * LDS;
-    const bf16* Ob = Os + buf * QT * LDS;
-    const float* Lb = Ls + buf * QT;
-    const float* Db = Dl + buf * QT;
+  __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x QT queries.
-    float st[NQ][4], dpt[NQ][4];
+  if (tid < 128) {
+    // Lowered to 40, not 24: warp 1 computes addresses too.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0 && n_it > 0) {
+      // K and V once: 64-row boxes, none wholly past Sk.
+      const int halves = a.Sk - k0 > KT ? 2 : 1;
+      mbar_expect_tx(bar_kv, halves * 2 * KT * HD * 2);
+      for (int r = 0; r < halves; ++r) {
+        const Coords ck = order(perm.k, k0 + r * KT, kvh, b);
+        const Coords cv = order(perm.v, k0 + r * KT, kvh, b);
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t off = (j * BKV + r * KT) * ROW_BYTES;
+          tma_load(sK + off, &kmap, bar_kv, j * BOX, ck.c1, ck.c2, ck.c3);
+          tma_load(sV + off, &vmap, bar_kv, j * BOX, cv.c1, cv.c2, cv.c3);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(bar_empty + 8 * s, (it / STAGES - 1) & 1);
+        const int h = kvh * G + it / nq, q0 = (qr.x + it % nq) * Q_T;
+        const Coords cq = order(perm.q, q0, h, b);
+        const Coords co = order(perm.o, q0, h, b);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::QS_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t off = s * L::QS_BYTES + j * Q_T * ROW_BYTES;
+          tma_load(sQ + off, &qmap, full, j * BOX, cq.c1, cq.c2, cq.c3);
+          tma_load(sO + off, &omap, full, j * BOX, co.c1, co.c2, co.c3);
+        }
+      }
+    } else if (tid >= 32) {
+      // Warps 1-3, a step each in turn: the step's lse (log2 units; +inf
+      // past Sq, so P = 0 there) and D (0 past Sq) beside the copies,
+      // loaded before the stage is free, so that three loads are in flight
+      // and none waits on a release.
+      const int lane = tid & 31;
+      for (int it = tid / 32 - 1; it < n_it; it += 3) {
+        const int s = it % STAGES;
+        const int h = kvh * G + it / nq, q0 = (qr.x + it % nq) * Q_T;
+        const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
+        float lv[Q_T / 32], dl[Q_T / 32];
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t ka[4], va[4];
-      tc::a_frag<HD>(ka, Ks, kw, ks, lane);
-      tc::a_frag<HD>(va, Vs, kw, ks, lane);
+        for (int i = 0; i < Q_T / 32; ++i) {
+          const int q = q0 + lane + 32 * i;
+          lv[i] = q < a.Sq ? a.lse[row0 + q] * LOG2E : CUDART_INF_F;
+          dl[i] = q < a.Sq ? a.delta[row0 + q] : 0.f;
+        }
+        if (it >= STAGES) mbar_wait(bar_empty + 8 * s, (it / STAGES - 1) & 1);
 #pragma unroll
-      for (int np = 0; np < NQ / 2; ++np) {
-        uint32_t qb[4], ob[4];
-        tc::b_frag_nk<HD>(qb, Qb, np, ks, lane);
-        tc::b_frag_nk<HD>(ob, Ob, np, ks, lane);
-        tc::mma(st[2 * np], ka, qb[0], qb[1]);
-        tc::mma(st[2 * np + 1], ka, qb[2], qb[3]);
-        tc::mma(dpt[2 * np], va, ob[0], ob[1]);
-        tc::mma(dpt[2 * np + 1], va, ob[2], ob[3]);
+        for (int i = 0; i < Q_T / 32; ++i) {
+          Ls[s * Q_T + lane + 32 * i] = lv[i];
+          Ds[s * Q_T + lane + 32 * i] = dl[i];
+        }
+        mbar_arrive(bar_full + 8 * s);
       }
     }
+  } else {
+    // Consumer c owns keys k0 + 64 c .. + 63; warp w of it keys 16 w ..
+    // 16 w + 15 of those, as wgmma lays out the rows of S^T.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = tid / 128 - 1, t128 = tid & 127;
+    const int warp = t128 >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kc = k0 + CR * c, kw = kc + 16 * warp;
+    const bool live = kc < a.Sk;
+    const float scale2 = a.scale * LOG2E;
 
-    // P^T and dS^T (element e of n-tile n: key kw + g + 8 (e >> 1), query
-    // 8 n + 2 t + (e & 1)); masks only where the step meets an edge.
-    const bool full = k0 + BK <= a.Sk && q0 + QT <= a.Sq &&
-                      (!a.causal || q0 >= k0 + BK - 1) &&
-                      (a.window <= 0 || q0 + QT - 1 < k0 + a.window);
-    uint32_t pa[NQ / 2][4], sa[NQ / 2][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);
-        p[e] = tc::ex2(fmaf(st[n][e], scale2, -Lb[c]));
-        if (!full && !attends(q0 + c, k0 + kw + g + 8 * (e >> 1), a.Sq,
-                              a.Sk, a.causal, a.window))
-          p[e] = 0.f;
-        ds[e] = __fmul_rn(p[e], dpt[n][e] - Db[c]);
+    float dka[HD / 2], dva[HD / 2];
+    zero(dka);
+    zero(dva);
+    // The stage whose release waits for this consumer's last dV and dK
+    // products (still in flight while the next step's S^T and dP^T are
+    // issued), or -1.
+    int owed = -1;
+    // S^T and dP^T, each step's first k-step overwriting them.
+    float st[SN], dpt[SN];
+    zero(st);
+    zero(dpt);
+    if (n_it > 0) mbar_wait(bar_kv, 0);
+    for (int it = 0, qi = 0; it < n_it;
+         ++it, qi = qi + 1 == nq ? 0 : qi + 1) {
+      const int s = it % STAGES;
+      const int q0 = (qr.x + qi) * Q_T;
+      mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+      // A step masked for all of this consumer's keys is only released.
+      const bool skip = !live || (a.causal && q0 + Q_T - 1 < kc) ||
+                        (a.window > 0 && q0 >= kc + CR - 1 + a.window);
+      if (skip) {
+        if (owed >= 0) {
+          wgmma_wait0();
+          fence_regs(dva);
+          fence_regs(dka);
+          mbar_arrive(bar_empty + 8 * owed);
+          owed = -1;
+        }
+        mbar_arrive(bar_empty + 8 * s);
+        continue;
       }
-      // n-tile n is k-step n / 2, columns 8 (n & 1) of it.
-      pa[n >> 1][2 * (n & 1)] = tc::pack(p[0], p[1]);
-      pa[n >> 1][2 * (n & 1) + 1] = tc::pack(p[2], p[3]);
-      sa[n >> 1][2 * (n & 1)] = tc::pack(ds[0], ds[1]);
-      sa[n >> 1][2 * (n & 1) + 1] = tc::pack(ds[2], ds[3]);
+      const uint32_t sQs = sQ + s * L::QS_BYTES;
+      const uint32_t sOs = sO + s * L::QS_BYTES;
+      const float* Lb = Ls + s * Q_T;
+      const float* Db = Ds + s * Q_T;
+      // S^T = K Q^T, then dP^T = V dO^T: 64 keys x QT queries each, hd /
+      // 16 k-steps of one box, in two commit groups.
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        wgmma_ss<Q_T>(st, kmaj(sK, BKV, j, CR * c), kmaj(sQs, Q_T, j, 0),
+                      j > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        wgmma_ss<Q_T>(dpt, kmaj(sV, BKV, j, CR * c), kmaj(sOs, Q_T, j, 0),
+                      j > 0);
+      wgmma_commit();
+      wgmma_wait1();   // the last step's dV, dK and this S^T are done
+      fence_regs(st);
+      if (owed >= 0) mbar_arrive(bar_empty + 8 * owed);
+
+      // P^T: st[4 n + e] is (key kw + g + 8 (e >> 1), query q0 + 8 n + 2 t
+      // + (e & 1)); masks only where this warp's keys meet an edge of the
+      // band or of the sequences (a uniform branch: the mask's compares
+      // are not paid elsewhere).  As A operands, n-tile n is k-step n / 2,
+      // columns 8 (n & 1) of it (the accumulator's layout is the register
+      // A operand's).
+      const bool full = kw + 15 < a.Sk && (!a.causal || q0 >= kw + 15) &&
+                        (a.window <= 0 || q0 + Q_T - 1 < kw + a.window);
+      if (full) {
+#pragma unroll
+        for (int n = 0; n < Q_T / 8; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(Lb + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[4 * n + e] =
+                ex2(fmaf(st[4 * n + e], scale2, (e & 1) ? -l.y : -l.x));
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < Q_T / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * n + 2 * t + (e & 1);
+            st[4 * n + e] =
+                attends(q0 + col, kw + g + 8 * (e >> 1), a.Sq, a.Sk,
+                        a.causal, a.window)
+                    ? ex2(fmaf(st[4 * n + e], scale2, -Lb[col]))
+                    : 0.f;
+          }
+      }
+      uint32_t pa[Q_T / 16][4];
+#pragma unroll
+      for (int n = 0; n < Q_T / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          pa[n >> 1][2 * (n & 1) + r] = pack(st[4 * n + 2 * r],
+                                             st[4 * n + 2 * r + 1]);
+      // dV += P^T dO, dO an MN-major B operand of the stage S^T read
+      // K-major, while dP^T finishes.
+      fence_regs(dva);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Q_T / 16; ++kk)
+        wgmma_rs<HD>(dva, pa[kk], mnmaj(sOs, Q_T, kk));
+      wgmma_commit();
+      wgmma_wait1();   // dP^T is done
+      fence_regs(dpt);
+
+      // dS^T = P^T (dP^T - D), then dK += dS^T Q (Q MN-major).
+      uint32_t sa[Q_T / 16][4];
+#pragma unroll
+      for (int n = 0; n < Q_T / 8; ++n) {
+        const float2 d = *reinterpret_cast<const float2*>(Db + 8 * n + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          sa[n >> 1][2 * (n & 1) + r] =
+              pack(__fmul_rn(st[4 * n + 2 * r], dpt[4 * n + 2 * r] - d.x),
+                   __fmul_rn(st[4 * n + 2 * r + 1],
+                             dpt[4 * n + 2 * r + 1] - d.y));
+      }
+      fence_regs(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Q_T / 16; ++kk)
+        wgmma_rs<HD>(dka, sa[kk], mnmaj(sQs, Q_T, kk));
+      wgmma_commit();
+      owed = s;
     }
+    wgmma_wait0();
+    fence_regs(dva);
+    fence_regs(dka);
+    if (owed >= 0) mbar_arrive(bar_empty + 8 * owed);
 
-    // dV += P^T dO and dK += dS^T Q over this step's queries.
+    // dka[4 n + e] is (key kw + g + 8 (e >> 1), column 8 n + 2 t + (e & 1)).
+    bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dks.b + kvh * a.dks.h;
+    bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dvs.b + kvh * a.dvs.h;
 #pragma unroll
-    for (int kk = 0; kk < NQ / 2; ++kk)
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw + g + 8 * r;
+      if (key >= a.Sk) continue;
 #pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        uint32_t ob[4], qb[4];
-        tc::b_frag_kn<HD>(ob, Ob, np, kk, lane);
-        tc::b_frag_kn<HD>(qb, Qb, np, kk, lane);
-        tc::mma(dva[2 * np], pa[kk], ob[0], ob[1]);
-        tc::mma(dva[2 * np + 1], pa[kk], ob[2], ob[3]);
-        tc::mma(dka[2 * np], sa[kk], qb[0], qb[1]);
-        tc::mma(dka[2 * np + 1], sa[kk], qb[2], qb[3]);
+      for (int n = 0; n < HD / 8; ++n) {
+        const int col = 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkp + key * a.dks.s + col) =
+            pack(__fmul_rn(dka[4 * n + 2 * r], a.scale),
+                 __fmul_rn(dka[4 * n + 2 * r + 1], a.scale));
+        *reinterpret_cast<uint32_t*>(dvp + key * a.dvs.s + col) =
+            pack(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
       }
-    __syncthreads();   // the buffer is free for the step after next
-  }
-
-  bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dks.b + kvh * a.dks.h;
-  bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dvs.b + kvh * a.dvs.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int s = k0 + kw + g + 8 * r;
-    if (s >= a.Sk) continue;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = 8 * n + 2 * t;
-      *reinterpret_cast<uint32_t*>(dkp + s * a.dks.s + col) =
-          tc::pack(__fmul_rn(dka[n][2 * r], a.scale),
-                   __fmul_rn(dka[n][2 * r + 1], a.scale));
-      *reinterpret_cast<uint32_t*>(dvp + s * a.dvs.s + col) =
-          tc::pack(dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
 
 template <int HD>
-constexpr int dq_bf16_bytes() {
-  // Q and dO; K and V double-buffered.
-  return (2 * BQ + 4 * BK) * (HD + 8) * 2;
-}
+__global__ void __launch_bounds__(THREADS, 1)
+dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+         const __grid_constant__ CUtensorMap kmap,
+         const __grid_constant__ CUtensorMap vmap,
+         const __grid_constant__ CUtensorMap omap, Perm perm, const Args a) {
+  using L = DqSmem<HD>;
+  constexpr int Q_T = QT<HD>, NB = HD / BOX, SN = KT / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::Q, sO = base + L::O;
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t bar_full = base + L::BAR;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_q = bar_empty + 8 * STAGES;
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS) dq_bf16(const Args a) {
-  constexpr int LDS = HD + 8, NK = BK / 8, ND = HD / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LDS]
-  bf16* Os = Qs + BQ * LDS;                        // dO, [BQ][LDS]
-  bf16* Ks = Os + BQ * LDS;                        // [2][BK][LDS]
-  bf16* Vs = Ks + 2 * BK * LDS;                    // [2][BK][LDS]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_bh = a.B * a.H, n_qt = (a.Sq + BQ - 1) / BQ;
-  const int bh = blockIdx.x % n_bh;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh) * BQ;
+  // Query tiles from the last within a group of heads: the longest causal
+  // first.
+  const int n_qt = (a.Sq + BQ - 1) / BQ;
+  const int2 at = grid_order(blockIdx.x, a.B * a.H, n_qt);
+  const int bh = at.y;
+  const int q0 = (n_qt - 1 - at.x) * BQ;
   const int b = bh / a.H, h = bh % a.H, kvh = h / (a.H / a.KV);
-  const float scale2 = a.scale * LOG2E;
-  const int2 kr = key_tiles(q0, BQ, BK, a.Sq, a.Sk, a.causal, a.window);
-  const int n_it = kr.y - kr.x;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ks.b + kvh * a.ks.h;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vs.b + kvh * a.vs.h;
-  const int qw = 16 * warp;   // this warp's rows in the tile
+  const int2 kr = key_tiles(q0, BQ, KT, a.Sq, a.Sk, a.causal, a.window);
+  const int n_it = max(kr.y - kr.x, 0);
 
-  // This thread's rows q0 + qw + g and + 8: lse in log2 units, and D.
-  float lse2[2], dl[2];
-  const long long row0 = static_cast<long long>(bh) * a.Sq;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int s = q0 + qw + g + 8 * r;
-    lse2[r] = s < a.Sq ? a.lse[row0 + s] * LOG2E : CUDART_INF_F;
-    dl[r] = s < a.Sq ? a.delta[row0 + s] : 0.f;
-  }
-
-  auto issue = [&](int it, int buf) {
-    const int k0 = (kr.x + it) * BK;
-    tc::load_rows<HD>(Ks + buf * BK * LDS, kp, a.ks.s, k0, BK, a.Sk, tid);
-    tc::load_rows<HD>(Vs + buf * BK * LDS, vp, a.vs.s, k0, BK, a.Sk, tid);
-  };
-
-  float dqa[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-
-  if (n_it > 0) {
-    tc::load_rows<HD>(Qs, static_cast<const bf16*>(a.q) + b * a.qs.b +
-                              h * a.qs.h,
-                      a.qs.s, q0, BQ, a.Sq, tid);
-    tc::load_rows<HD>(Os, static_cast<const bf16*>(a.dout) + b * a.dos.b +
-                              h * a.dos.h,
-                      a.dos.s, q0, BQ, a.Sq, tid);
-    issue(0, 0);
-    tc::cp_commit();
-  }
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      issue(it + 1, buf ^ 1);
-      tc::cp_commit();
-      tc::cp_wait<1>();
-    } else {
-      tc::cp_wait<0>();
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
     }
-    __syncthreads();   // this step's K and V (and Q, dO) are in
-    const int k0 = (kr.x + it) * BK;
-    const bf16* Kb = Ks + buf * BK * LDS;
-    const bf16* Vb = Vs + buf * BK * LDS;
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BK keys.
-    float sc[NK][4], dp[NK][4];
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0 && n_it > 0) {
+      // Q and dO once, in boxes of QT rows; none wholly past Sq.
+      const int pieces = min(BQ / Q_T, (a.Sq - q0 + Q_T - 1) / Q_T);
+      mbar_expect_tx(bar_q, pieces * 2 * Q_T * HD * 2);
+      for (int r = 0; r < pieces; ++r) {
+        const Coords cq = order(perm.q, q0 + r * Q_T, h, b);
+        const Coords co = order(perm.o, q0 + r * Q_T, h, b);
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t off = (j * BQ + r * Q_T) * ROW_BYTES;
+          tma_load(sQ + off, &qmap, bar_q, j * BOX, cq.c1, cq.c2, cq.c3);
+          tma_load(sO + off, &omap, bar_q, j * BOX, co.c1, co.c2, co.c3);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(bar_empty + 8 * s, (it / STAGES - 1) & 1);
+        const int k0 = (kr.x + it) * KT;
+        const Coords ck = order(perm.k, k0, kvh, b);
+        const Coords cv = order(perm.v, k0, kvh, b);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::KS_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      uint32_t qa[4], oa[4];
-      tc::a_frag<HD>(qa, Qs, qw, ks, lane);
-      tc::a_frag<HD>(oa, Os, qw, ks, lane);
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {
-        uint32_t kb[4], vb[4];
-        tc::b_frag_nk<HD>(kb, Kb, np, ks, lane);
-        tc::b_frag_nk<HD>(vb, Vb, np, ks, lane);
-        tc::mma(sc[2 * np], qa, kb[0], kb[1]);
-        tc::mma(sc[2 * np + 1], qa, kb[2], kb[3]);
-        tc::mma(dp[2 * np], oa, vb[0], vb[1]);
-        tc::mma(dp[2 * np + 1], oa, vb[2], vb[3]);
+        for (int j = 0; j < NB; ++j) {
+          const uint32_t off = s * L::KS_BYTES + j * KT * ROW_BYTES;
+          tma_load(sK + off, &kmap, full, j * BOX, ck.c1, ck.c2, ck.c3);
+          tma_load(sV + off, &vmap, full, j * BOX, cv.c1, cv.c2, cv.c3);
+        }
       }
     }
+  } else {
+    // Consumer c owns query rows q0 + 64 c .. + 63; warp w of it rows
+    // 16 w .. 16 w + 15 of those.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = tid / 128 - 1, t128 = tid & 127;
+    const int warp = t128 >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + CR * c, w0 = r0 + 16 * warp;
+    const int row[2] = {w0 + g, w0 + g + 8};
+    const bool live = r0 < a.Sq;
+    const float scale2 = a.scale * LOG2E;
 
-    // dS (element e of n-tile n: row qw + g + 8 (e >> 1), key 8 n + 2 t +
-    // (e & 1)) as the A operand of dQ += dS K.
-    const bool full = k0 + BK <= a.Sk && q0 + BQ <= a.Sq &&
-                      (!a.causal || q0 >= k0 + BK - 1) &&
-                      (a.window <= 0 || q0 + BQ - 1 < k0 + a.window);
-    uint32_t sa[NK / 2][4];
+    // This thread's rows: lse in log2 units (+inf past Sq), and D.
+    float lse2[2], dl[2];
+    const long long row0 = static_cast<long long>(bh) * a.Sq;
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = tc::ex2(fmaf(sc[n][e], scale2, -lse2[r]));
-        if (!full && !attends(q0 + qw + g + 8 * r, k0 + 8 * n + 2 * t +
-                                                       (e & 1),
-                              a.Sq, a.Sk, a.causal, a.window))
-          p = 0.f;
-        ds[e] = __fmul_rn(p, dp[n][e] - dl[r]);
-      }
-      sa[n >> 1][2 * (n & 1)] = tc::pack(ds[0], ds[1]);
-      sa[n >> 1][2 * (n & 1) + 1] = tc::pack(ds[2], ds[3]);
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = row[r] < a.Sq ? a.lse[row0 + row[r]] * LOG2E : CUDART_INF_F;
+      dl[r] = row[r] < a.Sq ? a.delta[row0 + row[r]] : 0.f;
     }
-#pragma unroll
-    for (int kk = 0; kk < NK / 2; ++kk)
-#pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        uint32_t kb[4];
-        tc::b_frag_kn<HD>(kb, Kb, np, kk, lane);
-        tc::mma(dqa[2 * np], sa[kk], kb[0], kb[1]);
-        tc::mma(dqa[2 * np + 1], sa[kk], kb[2], kb[3]);
-      }
-    __syncthreads();   // the buffer is free for the step after next
-  }
 
-  bf16* dqp = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h;
+    float dqa[HD / 2];
+    zero(dqa);
+    int owed = -1;   // the stage the last dQ products still read, or -1
+    // S and dP, each step's first k-step overwriting them.
+    float sc[SN], dp[SN];
+    zero(sc);
+    zero(dp);
+    if (n_it > 0) mbar_wait(bar_q, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES;
+      const int k0 = (kr.x + it) * KT;
+      mbar_wait(bar_full + 8 * s, (it / STAGES) & 1);
+      const bool skip = !live || (a.causal && k0 > r0 + CR - 1) ||
+                        (a.window > 0 && k0 + KT - 1 <= r0 - a.window);
+      if (skip) {
+        if (owed >= 0) {
+          wgmma_wait0();
+          fence_regs(dqa);
+          mbar_arrive(bar_empty + 8 * owed);
+          owed = -1;
+        }
+        mbar_arrive(bar_empty + 8 * s);
+        continue;
+      }
+      const uint32_t sKs = sK + s * L::KS_BYTES;
+      const uint32_t sVs = sV + s * L::KS_BYTES;
+      // S = Q K^T, then dP = dO V^T: 64 rows x 64 keys each.
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int s = q0 + qw + g + 8 * r;
-    if (s >= a.Sq) continue;
+      for (int j = 0; j < NB; ++j)
+        wgmma_ss_n64(sc, kmaj(sQ, BQ, j, CR * c), kmaj(sKs, KT, j, 0), j > 0);
+      wgmma_commit();
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dqp + s * a.dqs.s + 8 * n + 2 * t) =
-          tc::pack(__fmul_rn(dqa[n][2 * r], a.scale),
-                   __fmul_rn(dqa[n][2 * r + 1], a.scale));
+      for (int j = 0; j < NB; ++j)
+        wgmma_ss_n64(dp, kmaj(sO, BQ, j, CR * c), kmaj(sVs, KT, j, 0), j > 0);
+      wgmma_commit();
+      wgmma_wait1();   // the last step's dQ and this S are done
+      fence_regs(sc);
+      if (owed >= 0) mbar_arrive(bar_empty + 8 * owed);
+
+      // P: sc[4 n + e] is (row[e >> 1], key k0 + 8 n + 2 t + (e & 1)).
+      const bool full = k0 + KT <= a.Sk && (!a.causal || k0 + KT - 1 <= w0) &&
+                        (a.window <= 0 || k0 > w0 + 15 - a.window);
+      if (full) {
+#pragma unroll
+        for (int i = 0; i < SN; ++i)
+          sc[i] = ex2(fmaf(sc[i], scale2, -lse2[(i >> 1) & 1]));
+      } else {
+#pragma unroll
+        for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * n + e] =
+                attends(row[e >> 1], k0 + 8 * n + 2 * t + (e & 1), a.Sq,
+                        a.Sk, a.causal, a.window)
+                    ? ex2(fmaf(sc[4 * n + e], scale2, -lse2[e >> 1]))
+                    : 0.f;
+      }
+      wgmma_wait0();
+      fence_regs(dp);
+
+      // dS = P (dP - D) as the A operand of dQ += dS K, K read MN-major;
+      // its products run on while the next step's are issued.
+      uint32_t sa[KT / 16][4];
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          sa[n >> 1][2 * (n & 1) + r] =
+              pack(__fmul_rn(sc[4 * n + 2 * r], dp[4 * n + 2 * r] - dl[r]),
+                   __fmul_rn(sc[4 * n + 2 * r + 1],
+                             dp[4 * n + 2 * r + 1] - dl[r]));
+      fence_regs(dqa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_rs<HD>(dqa, sa[kk], mnmaj(sKs, KT, kk));
+      wgmma_commit();
+      owed = s;
+    }
+    wgmma_wait0();
+    fence_regs(dqa);
+    if (owed >= 0) mbar_arrive(bar_empty + 8 * owed);
+
+    bf16* dqp = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= a.Sq) continue;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dqp + row[r] * a.dqs.s + 8 * n +
+                                     2 * t) =
+            pack(__fmul_rn(dqa[4 * n + 2 * r], a.scale),
+                 __fmul_rn(dqa[4 * n + 2 * r + 1], a.scale));
+    }
   }
 }
+
+}  // namespace wb
 
 // ---------------------------------------------------------------------------
 // launch
@@ -851,26 +994,45 @@ cudaError_t allow_smem(F* kernel, int bytes, bool& configured) {
   return err;
 }
 
+// The bf16 kernels: four tensor maps a call, shared by both (Q and dO in
+// boxes of QT rows, K and V of 64).
+template <int HD>
+int launch_bf16(const Args& a, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om;
+  wb::Perm perm;
+  if (make_map(&qm, &perm.q, a.q, a.B, a.H, a.Sq, HD, a.qs, wb::QT<HD>) ||
+      make_map(&km, &perm.k, a.k, a.B, a.KV, a.Sk, HD, a.ks, wb::KT) ||
+      make_map(&vm, &perm.v, a.v, a.B, a.KV, a.Sk, HD, a.vs, wb::KT) ||
+      make_map(&om, &perm.o, a.dout, a.B, a.H, a.Sq, HD, a.dos, wb::QT<HD>))
+    return -2;
+  constexpr int kv_bytes = wb::DkvSmem<HD>::BYTES + 1024;   // + alignment
+  constexpr int q_bytes = wb::DqSmem<HD>::BYTES + 1024;
+  static bool kv_ok = false, q_ok = false;
+  cudaError_t err;
+  if ((err = allow_smem(wb::dkv_wgmma<HD>, kv_bytes, kv_ok)) != cudaSuccess ||
+      (err = allow_smem(wb::dq_wgmma<HD>, q_bytes, q_ok)) != cudaSuccess)
+    return (int)err;
+  const unsigned kv_blocks = (a.Sk + wb::BKV - 1) / wb::BKV * a.B * a.KV;
+  const unsigned q_blocks = (a.Sq + wb::BQ - 1) / wb::BQ * a.B * a.H;
+  wb::dkv_wgmma<HD><<<kv_blocks, wb::THREADS, kv_bytes, st>>>(qm, km, vm, om,
+                                                              perm, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  wb::dq_wgmma<HD><<<q_blocks, wb::THREADS, q_bytes, st>>>(qm, km, vm, om,
+                                                           perm, a);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(int dtype, const Args& a, cudaStream_t st) {
   const int n_kt = (a.Sk + BK - 1) / BK, n_qt = (a.Sq + BQ - 1) / BQ;
   const dim3 dgrid((a.Sq + 7) / 8, a.B * a.H);
-  const unsigned kv_blocks = n_kt * a.B * a.KV, q_blocks = n_qt * a.B * a.H;
   cudaError_t err;
   if (dtype == 1) {
     bwd_delta<bf16><<<dgrid, 256, 0, st>>>(a, HD);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    static bool kv_ok = false, q_ok = false;
-    constexpr int kv_bytes = dkv_bf16_bytes<HD>();
-    constexpr int q_bytes = dq_bf16_bytes<HD>();
-    if ((err = allow_smem(dkv_bf16<HD>, kv_bytes, kv_ok)) != cudaSuccess ||
-        (err = allow_smem(dq_bf16<HD>, q_bytes, q_ok)) != cudaSuccess)
-      return (int)err;
-    dkv_bf16<HD><<<kv_blocks, THREADS, kv_bytes, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    dq_bf16<HD><<<q_blocks, THREADS, q_bytes, st>>>(a);
-    return (int)cudaGetLastError();
+    return launch_bf16<HD>(a, st);
   }
+  const unsigned kv_blocks = n_kt * a.B * a.KV, q_blocks = n_qt * a.B * a.H;
   bwd_delta<float><<<dgrid, 256, 0, st>>>(a, HD);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   static bool kv_ok = false, q_ok = false;
@@ -892,8 +1054,8 @@ int launch(int dtype, const Args& a, cudaStream_t st) {
 // also 16-byte aligned bases and strides); lse the forward's (B, H, Sq)
 // float32 log-sum-exp and delta a float32 (B, H, Sq) scratch, both
 // contiguous.  dtype 0 is float32, 1 bfloat16.  Writes dq, dk and dv in
-// q's dtype.  Returns 0, a CUDA error code, or -1 for an unsupported hd or
-// dtype.
+// q's dtype.  Returns 0, a CUDA error code, -1 for an unsupported hd or
+// dtype, or -2 if a bf16 tensor map could not be made.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,

@@ -14,9 +14,10 @@ backward reads.
 ``flash_attention_bhsd_bwd`` (``csrc/flash_attention_bwd.cu``) takes the
 forward's inputs, its output and ``lse`` and the output's gradient, and
 writes dq, dk and dv (through strided views too, with the same checks;
-its bf16 path copies 16-byte pieces by ``cp.async``, hence the same
-alignment rule).  ``LAUNCHES`` counts the forward's launches and
-``BWD_LAUNCHES`` the backward's (one a call of its three kernels).
+its bf16 kernels read q, k, v and dO by TMA as well, through four tensor
+maps a call, hence the same alignment rule).  ``LAUNCHES`` counts the
+forward's launches and ``BWD_LAUNCHES`` the backward's (one a call of its
+three kernels).
 """
 from __future__ import annotations
 
@@ -73,8 +74,7 @@ def _bwd_fn():
 
 def _check_views(caller: str, like, named) -> None:
     """Every (name, tensor) on ``like``'s CUDA device in its dtype, unit
-    stride along hd, and in bfloat16 16-byte aligned (TMA's and
-    cp.async's rule)."""
+    stride along hd, and in bfloat16 16-byte aligned (TMA's rule)."""
     for name, t in named:
         if not t.is_cuda or t.device != like.device:
             raise ValueError(f"{caller}: {name} must be on one CUDA device "

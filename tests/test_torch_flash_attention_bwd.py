@@ -464,3 +464,139 @@ def test_forward_passes_lse_before_the_stream(monkeypatch):
     with pytest.raises(ValueError, match="lse"):
         fa_mod.flash_attention_bhsd(q, q, q, out=out, lse=torch.zeros(
             (1, 16, 4)).as_subclass(_OnCard).transpose(1, 2))
+
+
+def test_bwd_entry_point_argument_layout(fake_bwd_lib):
+    """The entry point is declared as it is defined: q, k, v, o, lse, dO,
+    dq, dk, dv and the delta scratch as pointers; dtype, B, H, KV, Sq,
+    Sk, hd, causal, window as ints; the (b, h, s) strides of q, k, v, o,
+    dO, dq, dk, dv as 64-bit ints; the stream."""
+    import ctypes
+
+    fn = fa_mod._bwd_fn()
+    assert fn.argtypes == ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                           + [ctypes.c_longlong] * 24 + [ctypes.c_void_p])
+    assert fn.restype is ctypes.c_int
+
+
+def test_bwd_launcher_takes_gqa_views(fake_bwd_lib):
+    """hd 128 over 8 kv heads (llava's and mixtral's attention) with a
+    window, q and k, v from one fused (B, S, H + 2 KV, hd) projection as
+    the model slices it: KV in the sizes, dk and dv of k's shape, and
+    each view's own strides."""
+    B, S, H, KV, hd = 2, 96, 32, 8, 128
+    fused = torch.zeros((B, S, H + 2 * KV, hd), dtype=torch.bfloat16
+                        ).as_subclass(_OnCard)
+    q = fused[:, :, :H].transpose(1, 2)
+    k = fused[:, :, H:H + KV].transpose(1, 2)
+    v = fused[:, :, H + KV:].transpose(1, 2)
+    o, do, dq = (_bshd(B, S, H, hd) for _ in range(3))
+    dk, dv = _bshd(B, S, KV, hd), _bshd(B, S, KV, hd)
+    lse = torch.zeros((B, H, S)).as_subclass(_OnCard)
+    fa_mod.flash_attention_bhsd_bwd(q, k, v, o, lse, do, causal=True,
+                                    window=40, dq=dq, dk=dk, dv=dv)
+    args = fake_bwd_lib[0]
+    assert args[10:19] == (1, B, H, KV, S, S, hd, 1, 40)
+    assert args[1] == k.data_ptr() and args[2] == v.data_ptr()
+    assert args[2] - args[1] == KV * hd * 2
+    strides = [args[19 + 3 * i:22 + 3 * i] for i in range(8)]
+    for got, t in zip(strides, (q, k, v, o, do, dq, dk, dv)):
+        assert got == t.stride()[:3]
+    assert strides[1] == ((H + 2 * KV) * S * hd, hd, (H + 2 * KV) * hd)
+    assert strides[6] == (S * KV * hd, hd, KV * hd)
+    assert fa_mod.BWD_LAUNCHES == 1
+
+
+BWD_NAMES = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+
+
+@pytest.mark.parametrize("name", BWD_NAMES)
+def test_bwd_launcher_raises_on_a_misaligned_bf16_view(fake_bwd_lib,
+                                                       name):
+    """Each of the eight bf16 tensors the kernels read or write by TMA or
+    store to must start on 16 bytes: one that starts 2 bytes later
+    raises, and nothing launches."""
+    B, S, H, hd = 1, 16, 4, 64
+    ts = {n: _bshd(B, S, H, hd) for n in BWD_NAMES}
+    off = torch.zeros((B * S * H * hd + 1,), dtype=torch.bfloat16
+                      ).as_subclass(_OnCard)
+    ts[name] = off[1:].view(B, S, H, hd).transpose(1, 2)
+    assert ts[name].data_ptr() % 16 == 2
+    lse = torch.zeros((B, H, S)).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match=f"bfloat16 {name} must start on "
+                                         f"16 bytes"):
+        fa_mod.flash_attention_bhsd_bwd(
+            ts["q"], ts["k"], ts["v"], ts["o"], lse, ts["do"], dq=ts["dq"],
+            dk=ts["dk"], dv=ts["dv"])
+    assert fa_mod.BWD_LAUNCHES == 0 and not fake_bwd_lib
+
+
+@pytest.mark.parametrize("name", ("q", "k", "dk"))
+def test_bwd_launcher_raises_on_a_bf16_stride_off_eight(fake_bwd_lib, name):
+    """A row stride that is not a multiple of 8 elements (16 bytes) is
+    refused: a tensor map's strides must be."""
+    B, S, H, hd = 1, 16, 4, 64
+    ts = {n: _bshd(B, S, H, hd) for n in BWD_NAMES}
+    wide = torch.zeros((B, S, H, hd + 4), dtype=torch.bfloat16
+                       ).as_subclass(_OnCard)
+    ts[name] = wide[..., :hd].transpose(1, 2)
+    lse = torch.zeros((B, H, S)).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa_mod.flash_attention_bhsd_bwd(
+            ts["q"], ts["k"], ts["v"], ts["o"], lse, ts["do"], dq=ts["dq"],
+            dk=ts["dk"], dv=ts["dv"])
+    assert not fake_bwd_lib
+
+
+@pytest.mark.parametrize("hd", (16, 48, 96, 160, 256))
+def test_bwd_launcher_raises_on_an_unsupported_head_dim(fake_bwd_lib, hd):
+    x = _bshd(1, 16, 4, hd)
+    lse = torch.zeros((1, 4, 16)).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_mod.flash_attention_bhsd_bwd(x, x, x, x, lse, x, dq=x, dk=x,
+                                        dv=x)
+    assert not fake_bwd_lib
+
+
+@pytest.mark.parametrize("what", ("k_v_differ", "heads_do_not_group",
+                                  "dk_shape", "dv_shape", "o_shape",
+                                  "three_dims"))
+def test_bwd_launcher_raises_on_mismatched_shapes(fake_bwd_lib, what):
+    B, S, H, KV, hd = 1, 16, 6, 2, 64
+    q, o, do, dq = (_bshd(B, S, H, hd) for _ in range(4))
+    k, v, dk, dv = (_bshd(B, S, KV, hd) for _ in range(4))
+    lse = torch.zeros((B, H, S)).as_subclass(_OnCard)
+    if what == "k_v_differ":
+        v = _bshd(B, S + 8, KV, hd)
+    elif what == "heads_do_not_group":
+        k, v, dk, dv = (_bshd(B, S, 4, hd) for _ in range(4))
+    elif what == "dk_shape":
+        dk = _bshd(B, S, H, hd)
+    elif what == "dv_shape":
+        dv = _bshd(B, S + 8, KV, hd)
+    elif what == "o_shape":
+        o = _bshd(B, S, KV, hd)
+    else:
+        q = q[0]
+    with pytest.raises(ValueError):
+        fa_mod.flash_attention_bhsd_bwd(q, k, v, o, lse, do, dq=dq, dk=dk,
+                                        dv=dv)
+    assert fa_mod.BWD_LAUNCHES == 0 and not fake_bwd_lib
+
+
+def test_bwd_launcher_raises_on_a_failed_launch(monkeypatch, fake_bwd_lib):
+    """A nonzero return (a CUDA error, or -2 for a tensor map the driver
+    refused) raises and is not counted."""
+    class Lib:
+        @staticmethod
+        def flash_attention_bwd(*args):
+            return -2
+
+    monkeypatch.setattr(fa_mod._build, "load", lambda name: Lib)
+    monkeypatch.setattr(fa_mod, "_BWD_FN", None)
+    x = _bshd(1, 16, 4, 64)
+    lse = torch.zeros((1, 4, 16)).as_subclass(_OnCard)
+    bufs = {n: _bshd(1, 16, 4, 64) for n in ("dq", "dk", "dv")}
+    with pytest.raises(RuntimeError, match="CUDA error -2"):
+        fa_mod.flash_attention_bhsd_bwd(x, x, x, x, lse, x, **bufs)
+    assert fa_mod.BWD_LAUNCHES == 0
