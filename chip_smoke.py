@@ -282,6 +282,28 @@ phase w:
      through the train step: finite losses and gradient norms, ms per
      step, peak memory, the launch counts.
 
+Sharded training, after phase y:
+
+  z. an ``nccl`` group of one rank (from a ``FileStore`` under build/)
+     and a 1x1 ``DeviceMesh``; ``launch.train.train`` on stablelm-3b
+     (32 layers, B 8 x S 2048) and mamba2-370m (B 8 x S 2048) at full
+     width, 5 steps each, unsharded and then with ``mesh=``: the
+     parameters and AdamW moments are DTensors in the ZeRO-1 storage
+     layout and the step runs ``train_step``'s sharded path, the kernels
+     under ``local_map``.  Losses and gradient norms must be bit-equal to
+     the unsharded run's, and each run must launch ``flash_attention_bwd``
+     32 times a step (stablelm-3b) or ``ssd_scan_bwd`` 48 times a step
+     (mamba2-370m) with the forwards' counts; ms per step and peak memory
+     beside the unsharded run's.  ``compressed_allreduce`` and
+     ``ef_compress_step`` on a CUDA tensor over the one-rank data axis
+     (within 3 x the int8 scale; error feedback within rel 0.02 after 8
+     steps).  The group is destroyed; then, with nothing else on the
+     host, two dry runs run there together in subprocesses with no GPU
+     visible (a fake process group): ``launch.dryrun``'s mamba2-370m
+     train_4k cell on pod16x16, timed, and stablelm-3b's B 8 x S 2048
+     train step on a 1x1 mesh, whose ``t_compute``, ``t_memory`` and
+     peak bytes are logged beside the measured step.
+
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
 1 before doing anything.
@@ -4131,6 +4153,223 @@ def train_attention_families(dev) -> tuple:
     return fwd, bwd
 
 
+# ---------------------------------------------------------------------------
+# phase z: sharded training on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+# (arch, batch, seq, steps, kernel module, backward launches a step)
+MESH_TRAIN = (("stablelm-3b", 8, 2048, 5, "flash_attention", 32),
+              ("mamba2-370m", 8, 2048, 5, "ssd_scan", 48))
+DRYRUN_TIMEOUT_S = 400
+DRYRUN_1X1 = """
+import json, sys
+from pathlib import Path
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_distributed, make_test_mesh
+init_distributed("fake", world_size=1, rank=0)
+rec = dryrun.run_cell(get_config("stablelm-3b"),
+                      ShapeSpec("train_b8_s2048", 2048, 8, "train"),
+                      make_test_mesh(1, 1, device="fake"), "1x1",
+                      Path(sys.argv[1]))
+sys.exit(0 if rec["ok"] else 1)
+"""
+
+
+def _dry_runs(out: Path) -> list:
+    """The two dry runs of phase z, started together as host
+    subprocesses with no GPU visible, after the card's timed runs;
+    returns [(name, process, start time)]."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    cells = [("mamba2-370m train_4k pod16x16",
+              [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "mamba2-370m", "--shape", "train_4k", "--single-pod-only",
+               "--out", str(out)]),
+             ("stablelm-3b B8 S2048 1x1",
+              [sys.executable, "-c", DRYRUN_1X1, str(out)])]
+    return [(name, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True),
+             time.perf_counter()) for name, cmd in cells]
+
+
+def _timed_train(arch, batch, seq, steps, mesh, dev) -> dict:
+    """``launch.train.train`` with each step timed on the host clock
+    around a synchronised step; returns losses, grad norms, the median
+    step time (ms, first step left out), peak memory (GiB) and the
+    kernel launches."""
+    lt = importlib.import_module("repro_torch.launch.train")
+    orig = lt.make_train_step
+    times, gnorms = [], []
+
+    def make(*args, **kw):
+        step = orig(*args, **kw)
+
+        def timed_step(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(out[2]["grad_norm"]))
+            return out
+
+        return timed_step
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention"
+                                 ".flash_attention")
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    fa.reset_launches()
+    ssd.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lt.make_train_step = make
+    try:
+        params, opt, losses = lt.train(arch, False, steps, batch, seq, None,
+                                       False, log_every=1, mesh=mesh,
+                                       device=dev)
+    finally:
+        lt.make_train_step = orig
+    torch.cuda.synchronize()
+    run = dict(losses=losses, gnorms=gnorms,
+               ms=statistics.median(times[1:]),
+               peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={"flash_attention": fa.LAUNCHES,
+                         "flash_attention_bwd": fa.BWD_LAUNCHES,
+                         "ssd_scan": ssd.LAUNCHES,
+                         "ssd_scan_bwd": ssd.BWD_LAUNCHES},
+               n_params=sum(p.numel() for p in params.parameters()))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _compression_on_card(mesh, dev) -> None:
+    from repro_torch.train.compression import (compressed_allreduce,
+                                               ef_compress_step)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    g = torch.randn(1 << 20, generator=gen, device=dev)
+    out = compressed_allreduce(g, mesh, "data")
+    err = float((out - g).abs().max())
+    scale = float(g.abs().max()) / 127
+    e, acc, ref = torch.zeros_like(g), torch.zeros_like(g), torch.zeros_like(g)
+    for _ in range(8):
+        s, e = ef_compress_step(g, e, mesh, "data")
+        acc, ref = acc + s, ref + g
+    rel = float(torch.linalg.norm(acc - ref) / torch.linalg.norm(ref))
+    if not (err < 3 * scale and rel < 0.02 and out.device == g.device):
+        raise AssertionError(f"phase z compression: error {err} (scale "
+                             f"{scale}), error feedback rel {rel}")
+    log(f"[mesh] compressed_allreduce on the card (1,048,576 float32, int8 "
+        f"wire, a data axis of one rank): max error {err:.4g} < 3 x scale "
+        f"{scale:.4g}; ef_compress_step over 8 steps: rel {rel:.3g} < 0.02")
+
+
+def train_on_mesh(dev) -> dict:
+    """Phase z: sharded training on a 1x1 DeviceMesh against unsharded
+    training, compression on the card, two dry runs on the host.
+    Returns the kernels' launches of the sharded runs."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_test_mesh
+
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    dry = []
+    init_distributed("cuda", world_size=1, rank=0,
+                     store_path=str(tmp / "store"))
+    launches = {}
+    steps = {}
+    try:
+        mesh = make_test_mesh(1, 1, device="cuda")
+        for arch, batch, seq, n, kernel, per_step in MESH_TRAIN:
+            cfg = get_config(arch)
+            plain = _timed_train(arch, batch, seq, n, None, dev)
+            sharded = _timed_train(arch, batch, seq, n, mesh, dev)
+            bwd = kernel + "_bwd"
+            for name, run in (("unsharded", plain), ("1x1 mesh", sharded)):
+                got = run["launches"]
+                if got[bwd] != per_step * n or got[kernel] != 2 * per_step * n:
+                    raise AssertionError(
+                        f"phase z {arch} {name}: launches {got}, expected "
+                        f"{bwd} {per_step} and {kernel} {2 * per_step} a "
+                        f"step")
+            if not all(math.isfinite(x) for x in sharded["losses"]
+                       + sharded["gnorms"]):
+                raise AssertionError(f"phase z {arch}: not finite: "
+                                     f"{sharded}")
+            if (sharded["losses"] != plain["losses"]
+                    or sharded["gnorms"] != plain["gnorms"]):
+                raise AssertionError(
+                    f"phase z {arch}: the 1x1 mesh's losses "
+                    f"{sharded['losses']} / grad norms {sharded['gnorms']} "
+                    f"differ from the unsharded {plain['losses']} / "
+                    f"{plain['gnorms']}")
+            for name, count in sharded["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+            steps[arch] = sharded
+            log(f"[mesh] {arch} full width ({cfg.n_layers} layers, "
+                f"{sharded['n_params'] / 1e9:.3f} B parameters), bf16, "
+                f"B={batch} S={seq}, {n} steps through launch/train.py on a "
+                f"1x1 DeviceMesh (nccl): losses "
+                f"{[round(x, 4) for x in sharded['losses']]} and grad norms "
+                f"{[round(x, 4) for x in sharded['gnorms']]}, bit-equal to "
+                f"the unsharded run's; {bwd} {per_step} and {kernel} "
+                f"{2 * per_step} launches a step in both; "
+                f"{sharded['ms']:.2f} ms a step (unsharded "
+                f"{plain['ms']:.2f} ms; median of steps 2-{n}, host clock "
+                f"around a synchronised step); peak memory "
+                f"{sharded['peak']:.2f} GiB (unsharded {plain['peak']:.2f} "
+                f"GiB); {card_line()}")
+        _compression_on_card(mesh, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    try:
+        # after the timed runs, so that nothing else shares the host then
+        dry = _dry_runs(tmp / "dryrun")
+        for name, proc, t0 in dry:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase z dry run {name} failed: "
+                                     f"{out[-3000:]}")
+            log(f"[mesh] dry run {name}: {wall:.1f} s in a host subprocess "
+                f"(the two started together after the card's runs)")
+        for f in sorted((tmp / "dryrun").glob("*.json")):
+            rec = json.loads(f.read_text())
+            r, m = rec["roofline"], rec["memory"]
+            line = (f"[mesh] dry-run record {f.name}: {rec['n_chips']} "
+                    f"GPUs, accum {rec['accum']}, {rec['n_ops']} ops, run "
+                    f"{rec['run_s']} s; per GPU {rec['hlo']['flops']:.4g} "
+                    f"flops, {rec['hlo']['bytes']:.4g} bytes, collectives "
+                    f"{rec['hlo']['collectives']}; t_compute "
+                    f"{r['t_compute_s'] * 1e3:.2f} ms, t_memory "
+                    f"{r['t_memory_s'] * 1e3:.2f} ms, t_collective "
+                    f"{r['t_collective_s'] * 1e3:.2f} ms ({r['dominant']}); "
+                    f"peak {m['peak_bytes_per_device'] / 2 ** 30:.2f} GiB")
+            if rec["arch"] == "stablelm-3b":
+                st = steps["stablelm-3b"]
+                line += (f"; measured on the card: {st['ms']:.2f} ms a step, "
+                         f"peak {st['peak']:.2f} GiB")
+            log(line)
+    finally:
+        for _, proc, _ in dry:
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def _log_build(logs: dict, t0: float) -> None:
     """The built kernels, the time since t0, and each kernel function's
     registers, shared memory and spills as ptxas reports them, with any
@@ -4247,6 +4486,10 @@ def main() -> int:
     log(f"[launches] phase y: flash_attention {fwd_y}, flash_attention_bwd "
         f"{launches['flash_attention_bwd']}")
     launches["flash_attention"] += fwd_y
+    mesh_launches = timed("z", train_on_mesh)
+    log(f"[launches] phase z: {mesh_launches}")
+    for name, count in mesh_launches.items():
+        launches[name] += count
     launches["flex_score_batch_topk"] += faulted["flex_score_batch_topk"]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -23,7 +23,8 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = {"g": cs.flash_vs_plain, "k": cs.ssd_vs_plain,
           "v": cs.ssd_bwd_vs_plain, "x": cs.flash_bwd_vs_plain,
-          "w": cs.train_end_to_end, "y": cs.train_attention_families}
+          "w": cs.train_end_to_end, "y": cs.train_attention_families,
+          "z": cs.train_on_mesh}
 
 
 def main(names) -> int:

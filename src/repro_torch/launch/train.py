@@ -1,5 +1,5 @@
-"""End-to-end trainer with checkpoint/restart (port of
-``repro.launch.train`` on its ``mesh=None`` path).
+"""End-to-end trainer with checkpoint/restart and elastic re-mesh (port
+of ``repro.launch.train``).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
@@ -16,6 +16,13 @@ Examples:
       --steps 8 --batch 8 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --steps 8 --batch 8 --seq 2048
+  # sharded (ZeRO-1 over data, tensor parallel over model), one process
+  # per device: gloo processes on the CPU, one GPU per process on the card
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch stablelm-3b --smoke --steps 4 \
+      --batch 4 --seq 32 --mesh 2x2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --steps 3 --batch 8 --seq 2048 --mesh 1x1
 
 Same arguments, defaults and log lines as the reference, plus
 ``--device`` (default ``cuda``).  Weights are drawn from a
@@ -24,8 +31,17 @@ than the reference's ``PRNGKey(seed)``).  Checkpoints hold ``(params,
 opt_state)`` in the reference's tree layout (``convert.model_tree``; the
 optimizer's moments likewise) with ``extra = {"data_index", "loss"}``,
 so either package resumes from the other's.  The step donates the old
-optimizer state, as the reference's jitted step does.  ``--mesh``
-raises: sharded training is not ported yet.
+optimizer state, as the reference's jitted step does.
+
+With a mesh (``--mesh dpxtp``: a ``DeviceMesh`` over the default
+process group, see ``launch.mesh``) the parameters and AdamW moments are
+DTensors in the storage layout (``param_specs(..., "train")``), the step
+computes in the ``"compute"`` layout (``train_step``'s ZeRO-1 path), each
+batch is laid out by ``input_specs_sharding``, and a resume restores
+every leaf into the storage layout of the mesh it resumes on, whatever
+mesh wrote it.  Every rank draws the same weights and batches and keeps
+its own shards.  The dense and ssm families run under a mesh; the
+others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,7 +52,10 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import load_model_tree, model_tree
-from repro_torch.models.model import build_model
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models.model import build_model, require_mesh_family
+from repro_torch.sharding import rules
+from repro_torch.sharding.api import mesh_context
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import stream
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, adamw_init
@@ -62,10 +81,9 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     """Returns (params, opt_state, losses): the trained module, the
     optimizer state in the optimizer's flat layout, one float loss a
     step run."""
-    if mesh is not None:
-        raise NotImplementedError("repro_torch.launch.train: sharded "
-                                  "training (--mesh) is not ported yet")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if mesh is not None:
+        require_mesh_family(cfg)
     model = build_model(cfg, remat=not smoke)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                           total_steps=steps)
@@ -73,17 +91,30 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     # donates it: stablelm-3b's float32 moments are 22.4 GB, and held
     # twice at the step's end they would not fit one 80 GB card beside the
     # weights, their stacked copy and the gradients.
-    step_fn = make_train_step(model, opt_cfg, accum_steps=accum,
-                              donate=True)
-
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = model.init(gen)
+    shardings = None
+    if mesh is not None:
+        p_abs = rules.abstract_tree(params)
+        storage = rules.named_shardings(
+            rules.param_specs(p_abs, mesh, "train"), mesh)
+        compute = rules.named_shardings(
+            rules.param_specs(p_abs, mesh, "compute"), mesh)
+        rules.distribute_module(params, mesh, storage)
+        step_fn = make_train_step(model, opt_cfg, accum_steps=accum,
+                                  compute_shardings=compute,
+                                  storage_shardings=storage, donate=True)
+        shardings = (storage, AdamWState(step=None, mu=storage, nu=storage))
+    else:
+        step_fn = make_train_step(model, opt_cfg, accum_steps=accum,
+                                  donate=True)
     opt_state = adamw_init(optimizer_view(params))
     start = 0
     if resume and ckpt_dir and (last := ckpt.latest_step(ckpt_dir)) is not None:
         (tree, opt_tree), meta = ckpt.restore(ckpt_dir, last,
-                                              _state(params, opt_state))
+                                              _state(params, opt_state),
+                                              shardings=shardings)
         load_model_tree(params, tree)
         opt_state = AdamWState(step=opt_tree.step, mu=flatten(opt_tree.mu),
                                nu=flatten(opt_tree.nu))
@@ -96,7 +127,11 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     t0 = time.time()
     for i in range(start, steps):
         batch_i = next(data)
-        params, opt_state, metrics = step_fn(params, opt_state, batch_i)
+        if mesh is not None:
+            batch_i = rules.distribute_tree(
+                batch_i, mesh, rules.input_specs_sharding(batch_i, mesh))
+        with mesh_context(mesh):
+            params, opt_state, metrics = step_fn(params, opt_state, batch_i)
         loss = float(metrics["loss"])
         losses.append(loss)
         if i % log_every == 0 or i == steps - 1:
@@ -125,13 +160,22 @@ def main():
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default=None,
-                    help="dpxtp, e.g. 2x4 (not ported yet: raises)")
+                    help="dpxtp, e.g. 2x2: one process per device "
+                         "(torchrun); on the CPU gloo processes")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args()
-    train(args.arch, args.smoke, args.steps, args.batch, args.seq,
-          args.ckpt_dir, args.resume, ckpt_every=args.ckpt_every,
-          accum=args.accum, mesh=args.mesh, lr=args.lr, device=args.device)
+    mesh = None
+    if args.mesh:
+        dp, tp = (int(x) for x in args.mesh.split("x"))
+        mesh = make_test_mesh(data=dp, model=tp, device=args.device)
+    try:
+        train(args.arch, args.smoke, args.steps, args.batch, args.seq,
+              args.ckpt_dir, args.resume, ckpt_every=args.ckpt_every,
+              accum=args.accum, mesh=mesh, lr=args.lr, device=args.device)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

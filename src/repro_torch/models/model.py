@@ -69,10 +69,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.sharding.api import constrain
 
 Batch = Dict[str, torch.Tensor]
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+MESH_FAMILIES = ("dense", "ssm")     # the families that run under a mesh
 MAMBA = ("ssm", "hybrid")            # the families with Mamba2 layers
 MAX_DEC_POS = 32_768                 # rows of the encdec's dec_pos_emb
 
@@ -81,6 +83,16 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED:
         raise ValueError(f"{cfg.name}: unknown model family "
                          f"{cfg.family!r}; one of {PORTED}")
+
+
+def require_mesh_family(cfg: ModelConfig) -> None:
+    """Raise for a family that does not run under a mesh yet."""
+    require_ported(cfg)
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family under a mesh is not "
+            f"ported yet (ROADMAP.md queue 1: the moe, hybrid, encdec and "
+            f"vlm families under a mesh); {MESH_FAMILIES} are")
 
 
 class _Group(nn.Module):
@@ -180,9 +192,9 @@ def _qkv(cfg, p, x, kv_x=None):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kv_x = x if kv_x is None else kv_x
     Skv = kv_x.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (kv_x @ p["wk"]).reshape(B, Skv, KV, hd)
-    v = (kv_x @ p["wv"]).reshape(B, Skv, KV, hd)
+    q = L.split_heads(x @ p["wq"], (B, S, H, hd))
+    k = L.split_heads(kv_x @ p["wk"], (B, Skv, KV, hd))
+    v = L.split_heads(kv_x @ p["wv"], (B, Skv, KV, hd))
     return q, k, v
 
 
@@ -195,8 +207,7 @@ def _attn_full(cfg, p, x, pos0=0, *, causal=True, use_rope=True):
         k = L.rope(k, pos, cfg.rope_theta, cfg.rope_frac)
     o = L.chunked_attention(q, k, v, causal=causal,
                             window=cfg.window if causal else 0)
-    B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+    return L.merge_heads(o, p["wo"]), (k, v)
 
 
 def _attn_cross(cfg, p, x, k, v):
@@ -206,7 +217,7 @@ def _attn_cross(cfg, p, x, k, v):
     H, hd = cfg.n_heads, cfg.head_dim_
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     o = L.chunked_attention(q, k, v, causal=False)
-    return o.reshape(B, S, -1) @ p["wo"]
+    return L.merge_heads(o, p["wo"])
 
 
 def _attn_decode(cfg, p, x, k_cache, v_cache, pos, *, use_rope=True,
@@ -217,23 +228,23 @@ def _attn_decode(cfg, p, x, k_cache, v_cache, pos, *, use_rope=True,
     k_cache, v_cache)."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    q = L.split_heads(x @ p["wq"], (B, 1, H, hd))
     if cross:
         if use_rope and cfg.rope_frac > 0:
             q = L.rope(q, pos.reshape(1), cfg.rope_theta, cfg.rope_frac)
         o = L.decode_attention(q, k_cache, v_cache, k_cache.shape[1] - 1)
-        return o.reshape(B, -1) @ p["wo"], k_cache, v_cache
-    k = (x @ p["wk"]).reshape(B, 1, KV, hd)
-    v = (x @ p["wv"]).reshape(B, 1, KV, hd)
+        return L.merge_heads(o[:, 0], p["wo"]), k_cache, v_cache
+    k = L.split_heads(x @ p["wk"], (B, 1, KV, hd))
+    v = L.split_heads(x @ p["wv"], (B, 1, KV, hd))
     if use_rope and cfg.rope_frac > 0:
         pp = pos.reshape(1)
         q = L.rope(q, pp, cfg.rope_theta, cfg.rope_frac)
         k = L.rope(k, pp, cfg.rope_theta, cfg.rope_frac)
     at = torch.clamp(pos, max=k_cache.shape[1] - 1).reshape(1).long()
-    k_cache.index_copy_(1, at, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+    L.write_position(k_cache, at, k.to(k_cache.dtype))
+    L.write_position(v_cache, at, v.to(v_cache.dtype))
     o = L.decode_attention(q, k_cache, v_cache, pos, window=cfg.window)
-    return o.reshape(B, -1) @ p["wo"], k_cache, v_cache
+    return L.merge_heads(o[:, 0], p["wo"]), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -428,16 +439,31 @@ def _lm_head(cfg, params: LM, h):
     logits = h @ w
     if cfg.vocab_padded != cfg.vocab_size:  # mask the padding entries
         pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e30)
+        logits = logits.masked_fill(L.replicated_like(pad, logits), -1e30)
     return logits
+
+
+def _lse_ll(lf, labels):
+    """Each row's log-sum-exp and its label's logit."""
+    return (torch.logsumexp(lf, dim=-1),
+            torch.gather(lf, -1, labels[..., None].long())[..., 0])
 
 
 def _xent(logits, labels, mask):
     """CE + z-loss; labels (B, S) int, mask (B, S) float32.  Returns
-    (CE + 1e-4 z-loss, CE), each averaged over max(sum(mask), 1)."""
+    (CE + 1e-4 z-loss, CE), each averaged over max(sum(mask), 1).
+
+    DTensor logits are gathered whole on the model axis first (the vocab
+    is split there); the log-sum-exp and the label's logit then run on
+    each device's own batch rows (``layers.heads_local``), as one
+    device's code runs them."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if isinstance(lf, L.DTensor):
+        rows = (None, True)
+        lse, ll = L.heads_local(_lse_ll, (L.whole_on_model(lf), labels),
+                                (rows, rows), (rows, rows))
+    else:
+        lse, ll = _lse_ll(lf, labels)
     ce = (lse - ll) * mask
     z = torch.square(lse) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
@@ -516,7 +542,8 @@ def _encdec_train(cfg, params: EncDec, frames, tokens, remat: bool):
         return h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
 
     h = params.tok_emb[tokens.long()]
-    h = h + params.dec_pos_emb[None, :h.shape[1]]
+    h = constrain(h + params.dec_pos_emb[None, :h.shape[1]],
+                  "batch", None, None)
     for lp in params.layers:
         h = _run(dec_body, remat, h, enc_out, lp)
     return h
@@ -549,10 +576,10 @@ def build_model(cfg: ModelConfig, remat: bool = True) -> Model:
                   lm_head, shared)
 
     def embed(params: LM, batch: Batch):
-        h = params.tok_emb[batch["tokens"].long()]
+        h = L.embed(params.tok_emb, batch["tokens"])
         if cfg.family == "vlm":
             h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
-        return h
+        return constrain(h, "batch", None, None)
 
     def loss(params: nn.Module, batch: Batch):
         """(CE + 1e-4 z-loss + 0.01 aux, metrics) over ``batch``."""
@@ -608,7 +635,7 @@ def build_model(cfg: ModelConfig, remat: bool = True) -> Model:
     @torch.no_grad()
     def decode(params: nn.Module, cache: Dict, tokens: torch.Tensor):
         pos = cache["len"]
-        h = params.tok_emb[tokens.long()]                    # (B, 1, D)
+        h = L.embed(params.tok_emb, tokens)                  # (B, 1, D)
         if cfg.family == "encdec":
             at = torch.clamp(pos, max=MAX_DEC_POS - 1).reshape(1).long()
             h = h + params.dec_pos_emb.index_select(0, at)[None]

@@ -16,8 +16,9 @@ Top-k takes a stable descending sort, so ties go to the lower expert
 index, as ``jax.lax.top_k`` orders them.  ``_group_size`` halves from
 4096 until it divides T, so an odd T gives one-token groups, ``cap = 2``
 and every expert runs for every token of the group, as in the reference.
-The reference's sharding annotations (``constrain``) and its remat name
-(``checkpoint_name``) are no-ops on one device and are left out.
+The reference's sharding annotations (``constrain``) stand at its sites
+in ``moe_apply`` (the identity without a mesh); its remat name
+(``checkpoint_name``) has no counterpart.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding.api import constrain
 
 
 def _group_size(n_tokens: int) -> int:
@@ -142,19 +144,26 @@ def moe_apply(cfg, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
     T = B * S
     g = _group_size(T)
     G = T // g
-    xt = x.reshape(G, g, D)
+    xt = constrain(x.reshape(G, g, D), "batch", None, None)
     gate_vals, idx, keep, pos, cap, aux = _route(cfg, p, xt)
 
     flat = torch.where(keep, idx * cap + pos,
                        torch.full_like(idx, E * cap))           # (G, g, k)
+    flat = constrain(flat, "batch", None, None)
     rows = torch.arange(G, device=x.device)[:, None, None].expand_as(flat)
-    xe_flat = torch.zeros((G, E * cap + 1, D), dtype=x.dtype,
-                          device=x.device)
+    xe_flat = constrain(torch.zeros((G, E * cap + 1, D), dtype=x.dtype,
+                                    device=x.device), "batch", None, None)
     xe_flat.index_put_((rows, flat), xt[:, :, None, :].expand(G, g, k, D),
                        accumulate=True)
+    xe_flat = constrain(xe_flat, "batch", None, None)
     xe = xe_flat[:, :E * cap].reshape(G, E, cap, D)
-    ye = _experts(cfg, p, xe).reshape(G, E * cap, D)
+    # experts shard on the model axis where E divides it
+    xe = constrain(xe, None, "expert", None, None)
+    ye = _experts(cfg, p, xe)
+    ye = constrain(ye, None, "expert", None, None).reshape(G, E * cap, D)
     ye = torch.cat([ye, ye.new_zeros((G, 1, D))], dim=1)
+    ye = constrain(ye, "batch", None, None)
     gathered = ye[rows, flat]                                   # (G,g,k,D)
+    gathered = constrain(gathered, "batch", None, None, None)
     y = (gathered * gate_vals[..., None].to(x.dtype)).sum(dim=2)
     return _shared(cfg, p, x, y.reshape(B, S, D)), aux

@@ -17,6 +17,11 @@ plain PyTorch on every device, as in the reference.
 Heads share a single (B, C) group (n_groups = 1), matching mamba2-370m.
 ``softplus`` is the reference's ``jax.nn.softplus`` (``logaddexp(x, 0)``),
 not ``F.softplus``, which returns x itself above 20.
+
+Under a mesh (DTensor activations) the causal conv runs on each
+device's own channels and the scan on its own heads
+(``layers.heads_local``): x, dt, A_log and y split on the model axis
+where the heads divide it, B and C whole.
 """
 from __future__ import annotations
 
@@ -26,8 +31,11 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import require_kernels
+from torch.distributed.tensor import DTensor
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_stand_in
+from repro_torch.models.layers import (heads_local, model_axis_size,
+                                       require_kernels)
 
 
 class SSMCache(NamedTuple):
@@ -85,7 +93,7 @@ def _causal_conv(x, w, b):
     """Depthwise causal conv1d.  x: (B, S, C); w: (W, C)."""
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for i in range(W):
         out = out + xp[:, i:i + S, :].float() * w[i]
     return (out + b).to(x.dtype)
@@ -163,23 +171,40 @@ def ssm_apply(cfg, p, x, with_cache: bool = False):
     d_inner, n, heads, _ = ssm_dims(cfg)
     P = cfg.ssm_head_dim
     z, xBC_raw, dt_raw = _project(p, x)
-    xBC = F.silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
-                 .float()).to(x.dtype)
+    if isinstance(xBC_raw, DTensor):
+        # on each device's own channels: depthwise, so no data moves
+        c = 2 if xBC_raw.shape[-1] % model_axis_size(xBC_raw) == 0 else None
+        conv = heads_local(
+            lambda *a: (_causal_conv(*a),),
+            (xBC_raw, p["conv_w"], p["conv_b"]),
+            ((c, True), (None if c is None else 1, False),
+             (None if c is None else 0, False)), ((c, True),))[0]
+    else:
+        conv = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
+    xBC = F.silu(conv.float()).to(x.dtype)
     xs = xBC[..., :d_inner]
     Bm = xBC[..., d_inner:d_inner + n]
     Cm = xBC[..., d_inner + n:]
-    dt = softplus(dt_raw.float() + p["dt_bias"])
     xh = xs.reshape(*xs.shape[:-1], heads, P)
-    if x.is_cuda:
-        # the kernel, at any S; x, B and C go in as views of xBC
-        require_kernels("ssm_apply")
-        out = ssd_scan(xh, Bm, Cm, dt, p["A_log"], cfg.ssd_chunk,
-                       return_state=with_cache)
-        y, state = out if with_cache else (out, None)
-    elif x.device.type == "cpu":
-        y, state = ssd_chunked(xh, Bm, Cm, dt, p["A_log"], cfg.ssd_chunk)
+    if isinstance(xh, DTensor):
+        # dt (element-wise) and the scan on each device's own heads
+        h = 2 if heads % model_axis_size(xh) == 0 else None
+        per_head = (None if h is None else 0, False)
+        outs = ((h, True), (None if h is None else 1, True))
+
+        def local(xh, Bm, Cm, dt_raw, dt_bias, A_log):
+            dt = softplus(dt_raw.float() + dt_bias)
+            return _scan(cfg, xh, Bm, Cm, dt, A_log,
+                         with_cache)[:1 + with_cache]
+
+        y, *state = heads_local(
+            local, (xh, Bm, Cm, dt_raw, p["dt_bias"], p["A_log"]),
+            ((h, True), (None, True), (None, True), (h, True), per_head,
+             per_head), outs[:1 + with_cache])
+        state = state[0] if with_cache else None
     else:
-        raise ValueError(f"ssm_apply: no SSD scan for {x.device}")
+        dt = softplus(dt_raw.float() + p["dt_bias"])
+        y, state = _scan(cfg, xh, Bm, Cm, dt, p["A_log"], with_cache)
     y = y + p["D"][:, None] * xh.float()
     y = y.reshape(*x.shape[:-1], d_inner)
     out = _gated_out(cfg, p, y, z)
@@ -187,6 +212,22 @@ def ssm_apply(cfg, p, x, with_cache: bool = False):
         tail = xBC_raw[:, -(cfg.conv_width - 1):, :]
         return out, SSMCache(conv=tail, state=state)
     return out
+
+
+def _scan(cfg, xh, Bm, Cm, dt, A_log, with_cache):
+    """(y, final state or None): the kernel on the card (on ``meta``
+    tensors, a dry run, its stand-in), ``ssd_chunked`` on the CPU."""
+    if xh.is_cuda or xh.is_meta:
+        # the kernel, at any S; x, B and C go in as views of xBC
+        if xh.is_cuda:
+            require_kernels("ssm_apply")
+        scan = ssd_scan if xh.is_cuda else ssd_scan_stand_in
+        out = scan(xh, Bm, Cm, dt, A_log, cfg.ssd_chunk,
+                   return_state=with_cache)
+        return out if with_cache else (out, None)
+    if xh.device.type == "cpu":
+        return ssd_chunked(xh, Bm, Cm, dt, A_log, cfg.ssd_chunk)
+    raise ValueError(f"ssm_apply: no SSD scan for {xh.device}")
 
 
 def ssm_cache_init(cfg, batch: int, dtype, *, device="cuda") -> SSMCache:

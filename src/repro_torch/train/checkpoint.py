@@ -16,6 +16,12 @@ by either package restores in the other.  bfloat16 leaves are stored as
 2-byte void records with ``"bfloat16"`` in the metadata, as the
 reference's numpy (with ``ml_dtypes``) writes them; no ``ml_dtypes`` is
 needed here.
+
+Under a mesh the files hold full tensors all the same: ``save`` gathers
+each DTensor leaf (``full_tensor``, on every rank), rank 0 writes, and
+the other ranks wait at a barrier.  ``restore`` with ``shardings`` lays
+each leaf out by its spec on any mesh, which is what makes a restart
+elastic across mesh shapes.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def _flatten(tree) -> List[Any]:
@@ -71,6 +79,8 @@ def _treedef(tree) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -88,7 +98,22 @@ def _sync_write(path: Path, write) -> None:
 
 def save(ckpt_dir: str | Path, step: int, tree: Any,
          extra: Optional[dict] = None, keep: int = 3) -> Path:
-    """Write ``tree`` as checkpoint ``step``; keep the newest ``keep``."""
+    """Write ``tree`` as checkpoint ``step``; keep the newest ``keep``.
+
+    With DTensor leaves every rank of the default group calls it; rank 0
+    writes."""
+    leaves = _flatten(tree)
+    if any(isinstance(t, DTensor) for t in leaves):
+        arrays = [_to_numpy(t) for t in leaves]
+        final = Path(ckpt_dir) / f"step_{step:08d}"
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, tree, leaves, arrays, extra, keep)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, tree, leaves, None, extra, keep)
+
+
+def _write(ckpt_dir, step, tree, leaves, arrays, extra, keep) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
@@ -97,11 +122,10 @@ def save(ckpt_dir: str | Path, step: int, tree: Any,
         shutil.rmtree(tmp)
     tmp.mkdir()
 
-    leaves = _flatten(tree)
     meta = {"step": step, "treedef": f"PyTreeDef({_treedef(tree)})",
             "n_leaves": len(leaves), "leaves": [], "extra": extra or {}}
     for i, leaf in enumerate(leaves):
-        arr = _to_numpy(leaf)
+        arr = _to_numpy(leaf) if arrays is None else arrays[i]
         dtype = ("bfloat16" if isinstance(leaf, torch.Tensor)
                  and leaf.dtype == torch.bfloat16 else str(arr.dtype))
         meta["leaves"].append({"shape": list(arr.shape), "dtype": dtype})
@@ -142,12 +166,16 @@ def _leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
         arr.shape).to(device)
 
 
-def restore(ckpt_dir: str | Path, step: int, like: Any):
+def restore(ckpt_dir: str | Path, step: int, like: Any,
+            shardings: Any = None):
     """Checkpoint ``step`` in the structure of ``like``.
 
     Each leaf lands on the device of ``like``'s leaf (a tensor; any other
     leaf means the CPU) with the stored dtype; shapes must match.
-    Returns (tree, metadata).
+    ``shardings``: a matching tree of ``sharding.rules.NamedSharding``
+    (``None`` where a leaf stays a plain tensor); each such leaf becomes
+    a DTensor laid out by it, every rank reading the file and keeping its
+    own shards.  Returns (tree, metadata).
     """
     path = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((path / "metadata.json").read_text())
@@ -156,15 +184,36 @@ def restore(ckpt_dir: str | Path, step: int, like: Any):
         raise ValueError(
             f"checkpoint has {meta['n_leaves']} leaves, expected "
             f"{len(like_leaves)}: architecture mismatch?")
+    shard_leaves = (_flatten_shardings(shardings, like)
+                    if shardings is not None else [None] * len(like_leaves))
     out = []
-    for i, ref in enumerate(like_leaves):
+    for i, (ref, sh) in enumerate(zip(like_leaves, shard_leaves)):
         arr = np.load(path / f"arr_{i}.npy")
         if list(arr.shape) != list(ref.shape):
             raise ValueError(f"leaf {i}: shape {arr.shape} != "
                              f"{tuple(ref.shape)}")
         device = ref.device if isinstance(ref, torch.Tensor) else "cpu"
-        out.append(_leaf_tensor(arr, meta["leaves"][i]["dtype"], device))
+        t = _leaf_tensor(arr, meta["leaves"][i]["dtype"], device)
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, sh.mesh, sh.placements,
+                                  src_data_rank=None)
+        out.append(t)
     return _unflatten(like, iter(out)), meta
+
+
+def _flatten_shardings(shardings, like) -> List[Any]:
+    """``shardings``'s leaves in ``like``'s leaf order (a ``None`` in
+    ``shardings`` stands for a whole subtree of plain leaves)."""
+    if shardings is None:
+        return [None] * len(_flatten(like))
+    if isinstance(like, dict):
+        return [x for k in sorted(like)
+                for x in _flatten_shardings(shardings[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for s, item in zip(shardings, like)
+                for x in _flatten_shardings(s, item)]
+    return [shardings]
 
 
 def restore_extra(ckpt_dir: str | Path, step: int) -> dict:

@@ -4,6 +4,11 @@ Port of ``repro.train.optimizer`` over dicts of tensors (name -> tensor):
 leaves are taken in sorted-key order, the order in which JAX flattens a
 dict.  Moments are float32.  Decoupled weight decay applies to matrices
 only (leaves of two or more dimensions), as in the reference.
+
+Leaves may be DTensors (a mesh run: parameters, gradients and moments in
+one storage layout).  The gradient norm is then a DTensor reduction
+over every shard, and the element-wise update runs on each device's own
+shards.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.numerics import fma
 
@@ -42,10 +48,16 @@ class AdamWState(NamedTuple):
     nu: Params
 
 
+def _zeros32(p):
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params: Params) -> AdamWState:
     dev = next(iter(params.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
+    zeros = {k: _zeros32(p) for k, p in params.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=zeros, nu={k: z.clone() for k, z in zeros.items()})
 
@@ -88,6 +100,8 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     step's end.
     """
     gnorm = global_norm(grads)
+    if isinstance(gnorm, DTensor):   # a 0-d reduction: replicated
+        gnorm = gnorm.full_tensor()
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
@@ -98,18 +112,39 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     for k in sorted(params):
         p, g, mu, nu = params[k], grads[k], state.mu[k], state.nu[k]
         decay = p.dim() >= 2   # decoupled weight decay on matrices only
-        out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-               for t in ((p,) if donate else (p, mu, nu))]
-        out += [mu, nu] if donate else []
-        flat = [t.reshape(-1) for t in (p, g, mu, nu)]
-        outs = [t.view(-1) for t in out]   # a donated moment is contiguous
-        for i in range(0, p.numel(), PIECE):   # a small leaf: one piece
-            piece = _update(cfg, *(t[i:i + PIECE] for t in flat), decay,
-                            scale, lr, b1c, b2c)
-            for dst, src in zip(outs, piece):
-                dst[i:i + PIECE].copy_(src)
-        new_p[k], new_m[k], new_v[k] = out
+        leaf = _update_shards if isinstance(p, DTensor) else _update_leaf
+        new_p[k], new_m[k], new_v[k] = leaf(cfg, p, g, mu, nu, decay, scale,
+                                            lr, b1c, b2c, donate)
     return new_p, AdamWState(step=step, mu=new_m, nu=new_v), gnorm
+
+
+def _update_leaf(cfg, p, g, mu, nu, decay, scale, lr, b1c, b2c, donate):
+    """(new p, new mu, new nu) of one leaf, a piece at a time."""
+    out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+           for t in ((p,) if donate else (p, mu, nu))]
+    out += [mu, nu] if donate else []
+    flat = [t.reshape(-1) for t in (p, g, mu, nu)]
+    outs = [t.view(-1) for t in out]   # a donated moment is contiguous
+    for i in range(0, p.numel(), PIECE):   # a small leaf: one piece
+        piece = _update(cfg, *(t[i:i + PIECE] for t in flat), decay,
+                        scale, lr, b1c, b2c)
+        for dst, src in zip(outs, piece):
+            dst[i:i + PIECE].copy_(src)
+    return tuple(out)
+
+
+def _update_shards(cfg, p, g, mu, nu, decay, scale, lr, b1c, b2c,
+                   donate):
+    """One DTensor leaf: :func:`_update_leaf` on each device's own shards
+    (the four leaves in one layout), wrapped back as DTensors."""
+    if any(list(t.placements) != list(p.placements) for t in (g, mu, nu)):
+        raise ValueError("adamw_update: a leaf's parameter, gradient and "
+                         "moments must share one layout")
+    out = _update_leaf(cfg, *(t.to_local() for t in (p, g, mu, nu)), decay,
+                       scale, lr, b1c, b2c, donate)
+    return tuple(DTensor.from_local(t, p.device_mesh, p.placements,
+                                    run_check=False, shape=p.shape,
+                                    stride=p.stride()) for t in out)
 
 
 def _update(cfg: AdamWConfig, p, g, mu, nu, decay: bool, scale, lr, b1c,

@@ -1,7 +1,7 @@
 """Train step factory: loss -> gradients -> AdamW, with microbatched
 gradient accumulation.
 
-Port of ``repro.train.train_step`` without its sharding arguments.  A
+Port of ``repro.train.train_step``.  A
 model is any object with ``loss(params, batch) -> (loss, metrics)``.
 Gradients come from ``torch.autograd.grad`` over the parameters, so a
 loss may run ``torch.autograd.Function``s with kernels for backward and
@@ -21,10 +21,22 @@ loss may run ``torch.autograd.Function``s with kernels for backward and
     per stacked leaf instead of once per layer's tensor: a full-width
     mamba2-370m step (B 8 x S 2048, H100) takes 13,878 kernels and
     1.66 s this way, 54,979 and 2.03 s over the module's own parameters.
+
+With ``compute_shardings`` and ``storage_shardings`` (trees of
+``sharding.rules.NamedSharding`` in the reference's layout; the module's
+parameters are DTensors in the storage layout) the step runs the
+reference's ZeRO-1 dataflow on DTensors: the parameters are
+redistributed once a step to the compute layout, each microbatch's
+gradients go back to the storage layout (from ``Partial`` on the data
+axes: a reduce-scatter), and AdamW updates the storage shards.  Where
+the two layouts agree (a 1x1 mesh) the redistribution returns the same
+local tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
+
+import contextlib
 
 import torch
 from torch import nn
@@ -113,7 +125,8 @@ def _apply(params, new: Dict[str, torch.Tensor]):
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1,
-                    *, donate: bool = False):
+                    compute_shardings=None, storage_shardings=None, *,
+                    donate: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; ``metrics`` holds ``loss`` and ``grad_norm``
     (and the loss's own metrics without accumulation) as 0-d tensors
@@ -123,7 +136,14 @@ def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1,
     many microbatches, whose gradients are averaged in float32.  With
     ``donate`` the step uses up ``opt_state`` (``adamw_update``'s
     ``donate``), as the reference's trainer donates it to its jitted step.
+    The sharding trees (both or neither) take the ZeRO-1 path of the
+    module docstring; the loss and gradient norm then come back as local
+    0-d tensors.
     """
+    if compute_shardings is not None or storage_shardings is not None:
+        return _sharded_train_step(model, opt_cfg, accum_steps,
+                                   compute_shardings, storage_shardings,
+                                   donate)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
         if accum_steps == 1:
@@ -150,6 +170,114 @@ def make_train_step(model, opt_cfg: AdamWConfig, accum_steps: int = 1,
         return _apply(params, new), opt_state, {"loss": loss,
                                                 "grad_norm": gnorm,
                                                 **metrics}
+
+    return train_step
+
+
+@contextlib.contextmanager
+def _swapped(module: nn.Module, tensors: Dict[str, torch.Tensor]):
+    """``module`` with its parameters ``tensors`` (by name) in place of
+    its own for the block."""
+    saved = []
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner)
+        saved.append((sub, leaf, sub._parameters[leaf]))
+        sub._parameters[leaf] = t
+    try:
+        yield module
+    finally:
+        for sub, leaf, p in saved:
+            sub._parameters[leaf] = p
+
+
+def _redistribute(t, placements):
+    return t if list(t.placements) == list(placements) \
+        else t.redistribute(t.device_mesh, placements)
+
+
+def to_compute(params, compute_shardings) -> Dict[str, torch.Tensor]:
+    """The module's parameters in the compute layout, by name (a step's
+    one all-gather), as leaves that record gradients."""
+    from repro_torch.sharding.rules import module_shardings
+
+    compute = module_shardings(params, compute_shardings)
+    return {n: _redistribute(p, compute[n]).detach().requires_grad_(True)
+            for n, p in params.named_parameters()}
+
+
+def sharded_grads(model, params, comp, batch, storage_shardings):
+    """(loss, metrics, gradients) of one (micro)batch over the
+    compute-layout parameters ``comp`` (:func:`to_compute`): the
+    gradients in the storage layout (from ``Partial`` on the data axes: a
+    reduce-scatter), in the optimizer's view (``optimizer_view``)."""
+    from repro_torch.convert import model_tree
+    from repro_torch.sharding.rules import module_shardings
+
+    storage = module_shardings(params, storage_shardings)
+    with torch.enable_grad(), _swapped(params, comp):
+        loss, metrics = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, list(comp.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    grads = {n: _redistribute(g, storage[n]) for n, g in zip(comp, grads)}
+    # stacked here, as ``value_and_grad`` stacks them, so the per-layer
+    # gradients are freed before AdamW runs
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        flatten(model_tree(grads))
+
+
+def _sharded_train_step(model, opt_cfg, accum_steps, compute_shardings,
+                        storage_shardings, donate):
+    from torch.distributed.tensor import DTensor
+
+    def local(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def train_step(params, opt_state: AdamWState, batch: Dict[str, Any],
+                   repeat=None):
+        """The step.  With ``repeat`` (a dry run's ``OpRecorder.repeat``)
+        ``batch`` holds one microbatch, run once inside
+        ``repeat(accum_steps)`` so that it counts ``accum_steps`` times,
+        as the reference's accounting multiplies its microbatch scan's
+        body by the trip count."""
+        comp = to_compute(params, compute_shardings)
+        if repeat is not None:
+            micro, block = [batch], repeat(accum_steps)
+        elif accum_steps == 1:
+            micro, block = [batch], contextlib.nullcontext()
+        else:
+            split = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            micro = [{k: v[i] for k, v in split.items()}
+                     for i in range(accum_steps)]
+            block = contextlib.nullcontext()
+        grads, losses = None, []
+        with block:
+            for mb in micro:
+                loss, metrics, g = sharded_grads(model, params, comp, mb,
+                                                 storage_shardings)
+                if accum_steps == 1:
+                    grads = g
+                else:
+                    if grads is None:
+                        grads = {k: torch.zeros_like(t, dtype=torch.float32)
+                                 for k, t in g.items()}
+                    grads = {k: grads[k] + g[k].float() / accum_steps
+                             for k in grads}
+                losses.append(local(loss))
+        if accum_steps == 1:
+            loss = losses[0]
+        else:
+            loss, metrics = torch.stack(losses).mean(), {}
+        # AdamW on the storage shards
+        new, opt_state, gnorm = adamw_update(
+            opt_cfg, grads, opt_state, optimizer_view(params),
+            donate=donate)
+        return _apply(params, new), opt_state, {
+            "loss": loss, "grad_norm": local(gnorm),
+            **{k: local(v) for k, v in metrics.items()}}
 
     return train_step
 

@@ -74,8 +74,10 @@ def test_resume_is_bit_exact(tmp_path):
 
 
 def test_mesh_raises():
+    # the dense and ssm families train under a mesh (test_torch_elastic);
+    # the others raise before the mesh is touched
     with pytest.raises(NotImplementedError, match="mesh"):
-        train("mamba2-370m", smoke=True, steps=1, batch=1, seq=8,
+        train("mixtral-8x7b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, resume=False, mesh="1x1", device="cpu")
 
 
