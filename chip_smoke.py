@@ -279,30 +279,35 @@ phase w:
      share); then mixtral-8x7b (2 of 32 layers), zamba2-7b (18 of 81,
      two calls of the shared attention block) and llava-next-mistral-7b
      (8 of 32, 576 patches, S 2048) at full width, B 8, two steps each
-     through the train step: finite losses and gradient norms, ms per
-     step, peak memory, the launch counts.
+     through ``launch.train.train``: finite losses and gradient norms,
+     ms per step, peak memory, the launch counts.
 
 Sharded training, after phase y:
 
   z. an ``nccl`` group of one rank (from a ``FileStore`` under build/)
      and a 1x1 ``DeviceMesh``; ``launch.train.train`` on stablelm-3b
      (32 layers, B 8 x S 2048) and mamba2-370m (B 8 x S 2048) at full
-     width, 5 steps each, unsharded and then with ``mesh=``: the
+     width, 5 steps each, unsharded and then with ``mesh=``; then phase
+     y's whisper-medium, mixtral-8x7b, zamba2-7b and llava-next-
+     mistral-7b runs again with ``mesh=`` and the same settings: the
      parameters and AdamW moments are DTensors in the ZeRO-1 storage
      layout and the step runs ``train_step``'s sharded path, the kernels
-     under ``local_map``.  Losses and gradient norms must be bit-equal to
-     the unsharded run's, and each run must launch ``flash_attention_bwd``
-     32 times a step (stablelm-3b) or ``ssd_scan_bwd`` 48 times a step
-     (mamba2-370m) with the forwards' counts; ms per step and peak memory
-     beside the unsharded run's.  ``compressed_allreduce`` and
-     ``ef_compress_step`` on a CUDA tensor over the one-rank data axis
-     (within 3 x the int8 scale; error feedback within rel 0.02 after 8
-     steps).  The group is destroyed; then, with nothing else on the
-     host, two dry runs run there together in subprocesses with no GPU
-     visible (a fake process group): ``launch.dryrun``'s mamba2-370m
-     train_4k cell on pod16x16, timed, and stablelm-3b's B 8 x S 2048
-     train step on a 1x1 mesh, whose ``t_compute``, ``t_memory`` and
-     peak bytes are logged beside the measured step.
+     under ``local_map``, the MoE layer's routing on each device's own
+     token groups.  Losses and gradient norms must be bit-equal to the
+     unsharded run's, each run must launch every kernel as often as the
+     model's code says (``_launches_per_step``: 2 forward and 1 backward
+     flash launches an attention call, the same SSD launches a Mamba2
+     layer), and the peak memory above the start must agree within 1%;
+     ms per step beside the unsharded run's.  ``compressed_allreduce``
+     and ``ef_compress_step`` on a CUDA tensor over the one-rank data
+     axis (within 3 x the int8 scale; error feedback within rel 0.02
+     after 8 steps).  The group is destroyed; then, with nothing else on
+     the host, three dry runs run there together in subprocesses with no
+     GPU visible (a fake process group): ``launch.dryrun``'s mamba2-370m
+     and mixtral-8x7b train_4k cells on pod16x16, timed, and
+     stablelm-3b's B 8 x S 2048 train step on a 1x1 mesh, whose
+     ``t_compute``, ``t_memory`` and peak bytes are logged beside the
+     measured step.
 
 Then the kernels' JSON line, and last ``{"ok": true, "device": ...}``.
 Any failure raises and the script exits non-zero.  Without a GPU it exits
@@ -3957,9 +3962,10 @@ def _trainer_config(**fields):
 def _train_full(dev, arch, batch, seq, steps, every, resume_at,
                 cut) -> tuple:
     """``launch.train.train`` on ``arch`` at full width and depth for
-    ``steps`` steps, then at the depth ``cut`` with checkpoints every
-    ``every`` and a resume from step ``resume_at``; returns (the full
-    model, flash forward launches, backward launches)."""
+    ``steps`` steps (:func:`_timed_train`), then at the depth ``cut``
+    with checkpoints every ``every`` and a resume from step
+    ``resume_at``; returns (the full model, flash forward launches,
+    backward launches, the full-depth run)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3972,16 +3978,11 @@ def _train_full(dev, arch, batch, seq, steps, every, resume_at,
     cfg = get_config(arch)
     calls = _attention_calls(cfg)
     kw = dict(smoke=False, batch=batch, seq=seq, log_every=1, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    t0 = time.perf_counter()
-    params, _, losses = train(arch, steps=steps, ckpt_dir=None,
-                              resume=False, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = _timed_train(arch, batch, seq, steps, None, dev, keep=True)
+    params, losses, wall = run.pop("params"), run["losses"], run["wall"]
+    fwd = run["launches"]["flash_attention"]
+    bwd = run["launches"]["flash_attention_bwd"]
+    peak = run["peak"]
     _check_losses(f"train {arch}", losses)
     _check_flash_launches(f"train {arch}", fwd, bwd, calls, steps)
     n_params = sum(p.numel() for p in params.parameters())
@@ -4042,7 +4043,7 @@ def _train_full(dev, arch, batch, seq, steps, every, resume_at,
     del ref, resumed
     gc.collect()
     torch.cuda.empty_cache()
-    return params, fwd + f_a + f_r, bwd + b_a + b_r
+    return params, fwd + f_a + f_r, bwd + b_a + b_r, run
 
 
 def _train_step_numbers(dev, cfg, params, batch, seq, index) -> None:
@@ -4068,47 +4069,22 @@ def _train_step_numbers(dev, cfg, params, batch, seq, index) -> None:
     state.clear()
 
 
-def _train_cut(dev, arch, layers, batch, seq) -> tuple:
+def _train_cut(dev, arch, layers, batch, seq) -> dict:
     """``arch`` at full width with ``layers`` layers: TRAIN_CUT_STEPS
-    steps through the train step; returns (flash forward launches,
-    backward launches)."""
+    steps through ``launch.train.train`` (:func:`_timed_train`);
+    returns the run."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.train import (AdamWConfig, adamw_init, make_train_step,
-                                   optimizer_view, synthetic_batch)
 
-    fa = importlib.import_module("repro_torch.kernels.flash_attention"
-                                 ".flash_attention")
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=layers)
     calls = _attention_calls(cfg)
-    model = build_model(cfg, remat=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = model.init(gen)
-    n_params = sum(p.numel() for p in params.parameters())
-    opt = adamw_init(optimizer_view(params))
-    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
-                                              total_steps=100), donate=True)
-    fa.reset_launches()
-    losses, norms, times = [], [], []
-    for i in range(TRAIN_CUT_STEPS):
-        data = synthetic_batch(cfg, batch, seq, 0, i, device=dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, opt, metrics = step(params, opt, data)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    with _trainer_config(n_layers=layers):
+        run = _timed_train(arch, batch, seq, TRAIN_CUT_STEPS, None, dev)
+    losses, norms = run["losses"], run["gnorms"]
+    fwd = run["launches"]["flash_attention"]
+    bwd = run["launches"]["flash_attention_bwd"]
     # A finite global norm means every gradient element is finite.
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"train {arch} ({layers} layers): losses "
@@ -4119,47 +4095,56 @@ def _train_cut(dev, arch, layers, batch, seq) -> tuple:
     log(f"[train] {arch} full width (d_model {cfg.d_model}, H {cfg.n_heads} "
         f"KV {cfg.n_kv_heads} hd {cfg.head_dim_}), {layers} of "
         f"{full.n_layers} layers (cut so that weights, gradients and AdamW's "
-        f"moments fit one card; {n_params / 1e9:.3f} B parameters), bf16, "
-        f"B={batch} S={positions}: {TRAIN_CUT_STEPS} steps through the train"
-        f" step, losses {[round(x, 4) for x in losses]}, gradient norms "
-        f"{[round(x, 4) for x in norms]} (finite); ms per step "
-        f"{[round(t, 2) for t in times]} (CUDA events; the first warms up);"
-        f" peak memory {peak:.2f} GiB; flash launches forward {fwd}, "
-        f"backward {bwd} ({calls} attention calls a forward)")
-    del params, opt, model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return fwd, bwd
+        f"moments fit one card; {run['n_params'] / 1e9:.3f} B parameters), "
+        f"bf16, B={batch} S={positions}: {TRAIN_CUT_STEPS} steps through "
+        f"launch/train.py, losses {[round(x, 4) for x in losses]}, gradient "
+        f"norms {[round(x, 4) for x in norms]} (finite); ms per step "
+        f"{[round(t, 2) for t in run['times']]} (host clock around a "
+        f"synchronised step; the first warms up); peak memory "
+        f"{run['peak']:.2f} GiB; flash launches forward {fwd}, backward "
+        f"{bwd} ({calls} attention calls a forward)")
+    return run
 
 
 def train_attention_families(dev) -> tuple:
     """Phase y: stablelm-3b and whisper-medium through launch/train.py at
     full width with a resume, their step times and profiles; mixtral-8x7b,
     zamba2-7b and llava-next-mistral-7b at full width with fewer layers.
-    Returns (flash forward launches, backward launches) of the runs."""
+    Returns (flash forward launches, backward launches, {arch: the
+    unsharded run phase z repeats on a mesh, for MESH_TRAIN_Y})."""
     fwd = bwd = 0
+    runs = {}
     for arch, batch, seq, steps, every, resume_at, cut in TRAIN_FULL:
-        params, f, b = _train_full(dev, arch, batch, seq, steps, every,
-                                   resume_at, cut)
+        params, f, b, run = _train_full(dev, arch, batch, seq, steps, every,
+                                        resume_at, cut)
         fwd, bwd = fwd + f, bwd + b
+        runs[arch] = dict(run, setting=(batch, seq, steps, None))
         from repro_torch.configs import get_config
         _train_step_numbers(dev, get_config(arch), params, batch, seq, steps)
         del params
         gc.collect()
         torch.cuda.empty_cache()
     for arch, layers, batch, seq in TRAIN_CUT:
-        f, b = _train_cut(dev, arch, layers, batch, seq)
-        fwd, bwd = fwd + f, bwd + b
-    return fwd, bwd
+        run = _train_cut(dev, arch, layers, batch, seq)
+        fwd += run["launches"]["flash_attention"]
+        bwd += run["launches"]["flash_attention_bwd"]
+        runs[arch] = dict(run, setting=(batch, seq, TRAIN_CUT_STEPS, layers))
+    return fwd, bwd, {a: runs[a] for a in MESH_TRAIN_Y}
 
 
 # ---------------------------------------------------------------------------
 # phase z: sharded training on a DeviceMesh
 # ---------------------------------------------------------------------------
 
-# (arch, batch, seq, steps, kernel module, backward launches a step)
-MESH_TRAIN = (("stablelm-3b", 8, 2048, 5, "flash_attention", 32),
-              ("mamba2-370m", 8, 2048, 5, "ssd_scan", 48))
+# (arch, batch, seq, steps): trained unsharded and on a 1x1 DeviceMesh
+# in phase z, full width and depth.
+MESH_TRAIN = (("stablelm-3b", 8, 2048, 5), ("mamba2-370m", 8, 2048, 5))
+# Trained unsharded in phase y (TRAIN_FULL's full-depth whisper-medium
+# run, B 8 x 447 over 1500 frames, 4 steps; TRAIN_CUT's depths, 2 steps
+# at 2048 positions) and on the 1x1 mesh in phase z with the same
+# settings, so that each model trains unsharded once.
+MESH_TRAIN_Y = ("whisper-medium", "mixtral-8x7b", "zamba2-7b",
+                "llava-next-mistral-7b")
 DRYRUN_TIMEOUT_S = 400
 DRYRUN_1X1 = """
 import json, sys
@@ -4178,7 +4163,7 @@ sys.exit(0 if rec["ok"] else 1)
 
 
 def _dry_runs(out: Path) -> list:
-    """The two dry runs of phase z, started together as host
+    """The three dry runs of phase z, started together as host
     subprocesses with no GPU visible, after the card's timed runs;
     returns [(name, process, start time)]."""
     import os
@@ -4189,6 +4174,10 @@ def _dry_runs(out: Path) -> list:
               [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                "mamba2-370m", "--shape", "train_4k", "--single-pod-only",
                "--out", str(out)]),
+             ("mixtral-8x7b train_4k pod16x16",
+              [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "mixtral-8x7b", "--shape", "train_4k", "--single-pod-only",
+               "--out", str(out)]),
              ("stablelm-3b B8 S2048 1x1",
               [sys.executable, "-c", DRYRUN_1X1, str(out)])]
     return [(name, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
@@ -4196,11 +4185,12 @@ def _dry_runs(out: Path) -> list:
              time.perf_counter()) for name, cmd in cells]
 
 
-def _timed_train(arch, batch, seq, steps, mesh, dev) -> dict:
+def _timed_train(arch, batch, seq, steps, mesh, dev, keep=False) -> dict:
     """``launch.train.train`` with each step timed on the host clock
-    around a synchronised step; returns losses, grad norms, the median
-    step time (ms, first step left out), peak memory (GiB) and the
-    kernel launches."""
+    around a synchronised step; returns losses, grad norms, the step
+    times (ms), their median (the first step left out), the wall time
+    with init (s), the bytes allocated at the start and the peak (GiB),
+    the kernel launches and, with ``keep``, the trained module."""
     lt = importlib.import_module("repro_torch.launch.train")
     orig = lt.make_train_step
     times, gnorms = [], []
@@ -4226,7 +4216,9 @@ def _timed_train(arch, batch, seq, steps, mesh, dev) -> dict:
     ssd.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     lt.make_train_step = make
+    t0 = time.perf_counter()
     try:
         params, opt, losses = lt.train(arch, False, steps, batch, seq, None,
                                        False, log_every=1, mesh=mesh,
@@ -4234,18 +4226,59 @@ def _timed_train(arch, batch, seq, steps, mesh, dev) -> dict:
     finally:
         lt.make_train_step = orig
     torch.cuda.synchronize()
-    run = dict(losses=losses, gnorms=gnorms,
+    run = dict(losses=losses, gnorms=gnorms, times=times,
                ms=statistics.median(times[1:]),
+               wall=time.perf_counter() - t0, base=base,
                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
                launches={"flash_attention": fa.LAUNCHES,
                          "flash_attention_bwd": fa.BWD_LAUNCHES,
                          "ssd_scan": ssd.LAUNCHES,
                          "ssd_scan_bwd": ssd.BWD_LAUNCHES},
                n_params=sum(p.numel() for p in params.parameters()))
+    if keep:
+        run["params"] = params
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return run
+
+
+def _launches_per_step(cfg) -> dict:
+    """Kernel launches a training step, from the model's code: under
+    per-layer recomputation every forward call runs twice (forward and
+    recomputed) and its backward once; a Mamba2 layer makes one SSD call,
+    an attention call (``_attention_calls``) one flash call."""
+    from repro_torch.models.model import MAMBA
+
+    attn = 0 if cfg.family == "ssm" else _attention_calls(cfg)
+    ssd = cfg.n_layers if cfg.family in MAMBA else 0
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "ssd_scan": 2 * ssd, "ssd_scan_bwd": ssd}
+
+
+def _same_as_unsharded(arch, cfg, plain, sharded, steps) -> None:
+    """The 1x1 mesh's run against the unsharded one: losses and grad
+    norms bit-equal, each kernel's launches those of the code, peak
+    memory above the start's bytes within 1%."""
+    want = {k: v * steps for k, v in _launches_per_step(cfg).items()}
+    for name, run in (("unsharded", plain), ("1x1 mesh", sharded)):
+        if run["launches"] != want:
+            raise AssertionError(f"phase z {arch} {name}: launches "
+                                 f"{run['launches']}, expected {want}")
+    if not all(math.isfinite(x) for x in sharded["losses"]
+               + sharded["gnorms"]):
+        raise AssertionError(f"phase z {arch}: not finite: {sharded}")
+    if (sharded["losses"] != plain["losses"]
+            or sharded["gnorms"] != plain["gnorms"]):
+        raise AssertionError(
+            f"phase z {arch}: the 1x1 mesh's losses {sharded['losses']} / "
+            f"grad norms {sharded['gnorms']} differ from the unsharded "
+            f"{plain['losses']} / {plain['gnorms']}")
+    grown = [r["peak"] - r["base"] for r in (plain, sharded)]
+    if abs(grown[1] - grown[0]) > 0.01 * grown[0]:
+        raise AssertionError(f"phase z {arch}: peak memory over the start "
+                             f"{grown[1]:.3f} GiB on the mesh, "
+                             f"{grown[0]:.3f} unsharded")
 
 
 def _compression_on_card(mesh, dev) -> None:
@@ -4271,10 +4304,12 @@ def _compression_on_card(mesh, dev) -> None:
         f"{scale:.4g}; ef_compress_step over 8 steps: rel {rel:.3g} < 0.02")
 
 
-def train_on_mesh(dev) -> dict:
+def train_on_mesh(dev, y_runs) -> dict:
     """Phase z: sharded training on a 1x1 DeviceMesh against unsharded
-    training, compression on the card, two dry runs on the host.
+    training (MESH_TRAIN here; MESH_TRAIN_Y against phase y's runs
+    ``y_runs``), compression on the card, three dry runs on the host.
     Returns the kernels' launches of the sharded runs."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -4291,45 +4326,44 @@ def train_on_mesh(dev) -> dict:
     steps = {}
     try:
         mesh = make_test_mesh(1, 1, device="cuda")
-        for arch, batch, seq, n, kernel, per_step in MESH_TRAIN:
-            cfg = get_config(arch)
-            plain = _timed_train(arch, batch, seq, n, None, dev)
-            sharded = _timed_train(arch, batch, seq, n, mesh, dev)
-            bwd = kernel + "_bwd"
-            for name, run in (("unsharded", plain), ("1x1 mesh", sharded)):
-                got = run["launches"]
-                if got[bwd] != per_step * n or got[kernel] != 2 * per_step * n:
-                    raise AssertionError(
-                        f"phase z {arch} {name}: launches {got}, expected "
-                        f"{bwd} {per_step} and {kernel} {2 * per_step} a "
-                        f"step")
-            if not all(math.isfinite(x) for x in sharded["losses"]
-                       + sharded["gnorms"]):
-                raise AssertionError(f"phase z {arch}: not finite: "
-                                     f"{sharded}")
-            if (sharded["losses"] != plain["losses"]
-                    or sharded["gnorms"] != plain["gnorms"]):
-                raise AssertionError(
-                    f"phase z {arch}: the 1x1 mesh's losses "
-                    f"{sharded['losses']} / grad norms {sharded['gnorms']} "
-                    f"differ from the unsharded {plain['losses']} / "
-                    f"{plain['gnorms']}")
+        todo = [(arch, (batch, seq, n, None), None)
+                for arch, batch, seq, n in MESH_TRAIN]
+        todo += [(arch, y_runs[arch]["setting"], y_runs[arch])
+                 for arch in MESH_TRAIN_Y]
+        for arch, (batch, seq, n, layers), plain in todo:
+            cut = {} if layers is None else {"n_layers": layers}
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            with _trainer_config(**cut):
+                if plain is None:
+                    plain = _timed_train(arch, batch, seq, n, None, dev)
+                sharded = _timed_train(arch, batch, seq, n, mesh, dev)
+            _same_as_unsharded(arch, cfg, plain, sharded, n)
             for name, count in sharded["launches"].items():
                 launches[name] = launches.get(name, 0) + count
             steps[arch] = sharded
-            log(f"[mesh] {arch} full width ({cfg.n_layers} layers, "
+            per_step = {k: v for k, v in _launches_per_step(cfg).items()
+                        if v}
+            depth = (f"{cfg.n_layers} layers" if layers is None else
+                     f"{layers} of {get_config(arch).n_layers} layers")
+            if cfg.family == "encdec":
+                depth += f" + {cfg.n_enc_layers} encoder layers"
+            positions = seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+            log(f"[mesh] {arch} full width ({depth}, "
                 f"{sharded['n_params'] / 1e9:.3f} B parameters), bf16, "
-                f"B={batch} S={seq}, {n} steps through launch/train.py on a "
-                f"1x1 DeviceMesh (nccl): losses "
+                f"B={batch} S={positions}, {n} steps through launch/train.py "
+                f"on a 1x1 DeviceMesh (nccl): losses "
                 f"{[round(x, 4) for x in sharded['losses']]} and grad norms "
                 f"{[round(x, 4) for x in sharded['gnorms']]}, bit-equal to "
-                f"the unsharded run's; {bwd} {per_step} and {kernel} "
-                f"{2 * per_step} launches a step in both; "
+                f"the unsharded run's"
+                + (" (phase y)" if arch in MESH_TRAIN_Y else "")
+                + f"; launches a step {per_step} in both; "
                 f"{sharded['ms']:.2f} ms a step (unsharded "
                 f"{plain['ms']:.2f} ms; median of steps 2-{n}, host clock "
                 f"around a synchronised step); peak memory "
-                f"{sharded['peak']:.2f} GiB (unsharded {plain['peak']:.2f} "
-                f"GiB); {card_line()}")
+                f"{sharded['peak']:.2f} GiB, {sharded['peak'] - sharded['base']:.3f} "
+                f"over the start (unsharded {plain['peak']:.2f}, "
+                f"{plain['peak'] - plain['base']:.3f}); {card_line()}")
+            plain = sharded = None
         _compression_on_card(mesh, dev)
     finally:
         if dist.is_initialized():
@@ -4344,7 +4378,7 @@ def train_on_mesh(dev) -> dict:
                 raise AssertionError(f"phase z dry run {name} failed: "
                                      f"{out[-3000:]}")
             log(f"[mesh] dry run {name}: {wall:.1f} s in a host subprocess "
-                f"(the two started together after the card's runs)")
+                f"(the three started together after the card's runs)")
         for f in sorted((tmp / "dryrun").glob("*.json")):
             rec = json.loads(f.read_text())
             r, m = rec["roofline"], rec["memory"]
@@ -4481,12 +4515,12 @@ def main() -> int:
     launches["flash_attention"] += encdec + vlm
     launches["ssd_scan_bwd"] = timed("w", train_end_to_end)
     log(f"[launches] phase w: ssd_scan_bwd {launches['ssd_scan_bwd']}")
-    fwd_y, launches["flash_attention_bwd"] = timed(
+    fwd_y, launches["flash_attention_bwd"], y_runs = timed(
         "y", train_attention_families)
     log(f"[launches] phase y: flash_attention {fwd_y}, flash_attention_bwd "
         f"{launches['flash_attention_bwd']}")
     launches["flash_attention"] += fwd_y
-    mesh_launches = timed("z", train_on_mesh)
+    mesh_launches = timed("z", train_on_mesh, y_runs)
     log(f"[launches] phase z: {mesh_launches}")
     for name, count in mesh_launches.items():
         launches[name] += count

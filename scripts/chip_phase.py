@@ -7,6 +7,7 @@ others feed (3 to u) are not offered.  Needs a CUDA card and nvcc.  From
 the repository root:
 
     python3 scripts/chip_phase.py x y
+    python3 scripts/chip_phase.py y z
 """
 from __future__ import annotations
 
@@ -28,9 +29,10 @@ PHASES = {"g": cs.flash_vs_plain, "k": cs.ssd_vs_plain,
 
 
 def main(names) -> int:
-    if not names or any(n not in PHASES for n in names):
-        print(f"usage: chip_phase.py PHASE... (of {', '.join(PHASES)})",
-              file=sys.stderr)
+    if (not names or any(n not in PHASES for n in names)
+            or ("z" in names and "y" not in names[:names.index("z")])):
+        print(f"usage: chip_phase.py PHASE... (of {', '.join(PHASES)}; z "
+              f"after y, whose runs it repeats on a mesh)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_phase: no CUDA card", file=sys.stderr)
@@ -41,9 +43,11 @@ def main(names) -> int:
     cs.log(f"[device] nvidia-smi: {cs.card_line()}")
     t0 = time.perf_counter()
     cs._log_build(_build.build_all(), t0)
+    out = {}
     for name in names:
         t1 = time.perf_counter()
-        PHASES[name](torch.device("cuda"))
+        args = (out["y"][2],) if name == "z" else ()
+        out[name] = PHASES[name](torch.device("cuda"), *args)
         cs.log(f"[time] phase {name}: {time.perf_counter() - t1:.1f} s")
     cs.log(f"chip_phase: phases {', '.join(names)} alone, not a smoke run")
     return 0

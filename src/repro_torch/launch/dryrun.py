@@ -15,8 +15,8 @@ ops: per-device flops, bytes, collective bytes by kind) and
 tensors, charged with the kernels' own flops and bytes
 (``roofline`` module docstring), so the attention and SSD terms are the
 card's path's.  The collective bytes are DTensor's own redistributions,
-not GSPMD's.  A family that does not run under a mesh yet records its
-``NotImplementedError``; any failed cell makes the CLI exit 1.
+not GSPMD's.  Every family runs its cells; a cell that raises records
+its error, and any failed cell makes the CLI exit 1.
 
 Usage:
   python -m repro_torch.launch.dryrun                 # every cell, both meshes

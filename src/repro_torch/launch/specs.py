@@ -16,8 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models.model import (Model, build_model, cache_specs,
-                                      require_mesh_family)
+from repro_torch.models.model import Model, build_model, cache_specs
 from repro_torch.sharding import rules
 from repro_torch.sharding.api import mesh_context
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -147,7 +146,6 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
     microbatch, and ``step(*args, repeat=recorder.repeat)`` counts it
     ``accum`` times, as the reference's accounting multiplies its
     microbatch scan's body by the trip count."""
-    require_mesh_family(cfg)
     model = build_model(cfg, remat=(shape.kind == "train"))
     total, active = param_count(model)
     params = abstract_params(model)

@@ -23,6 +23,9 @@ Examples:
       --batch 4 --seq 32 --mesh 2x2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
       --steps 3 --batch 8 --seq 2048 --mesh 1x1
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch mixtral-8x7b --smoke --steps 4 \
+      --batch 4 --seq 32 --mesh 2x2 --device cpu
 
 Same arguments, defaults and log lines as the reference, plus
 ``--device`` (default ``cuda``).  Weights are drawn from a
@@ -40,8 +43,8 @@ computes in the ``"compute"`` layout (``train_step``'s ZeRO-1 path), each
 batch is laid out by ``input_specs_sharding``, and a resume restores
 every leaf into the storage layout of the mesh it resumes on, whatever
 mesh wrote it.  Every rank draws the same weights and batches and keeps
-its own shards.  The dense and ssm families run under a mesh; the
-others raise ``NotImplementedError``.
+its own shards.  Every family runs under a mesh (the MoE layer's
+routing and dispatch on each device's own token groups, ``models.moe``).
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import load_model_tree, model_tree
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.model import build_model, require_mesh_family
+from repro_torch.models.model import build_model
 from repro_torch.sharding import rules
 from repro_torch.sharding.api import mesh_context
 from repro_torch.train import checkpoint as ckpt
@@ -82,8 +85,6 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     optimizer state in the optimizer's flat layout, one float loss a
     step run."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    if mesh is not None:
-        require_mesh_family(cfg)
     model = build_model(cfg, remat=not smoke)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                           total_steps=steps)

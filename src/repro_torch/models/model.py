@@ -74,7 +74,6 @@ from repro_torch.sharding.api import constrain
 Batch = Dict[str, torch.Tensor]
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-MESH_FAMILIES = ("dense", "ssm")     # the families that run under a mesh
 MAMBA = ("ssm", "hybrid")            # the families with Mamba2 layers
 MAX_DEC_POS = 32_768                 # rows of the encdec's dec_pos_emb
 
@@ -83,16 +82,6 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED:
         raise ValueError(f"{cfg.name}: unknown model family "
                          f"{cfg.family!r}; one of {PORTED}")
-
-
-def require_mesh_family(cfg: ModelConfig) -> None:
-    """Raise for a family that does not run under a mesh yet."""
-    require_ported(cfg)
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a mesh is not "
-            f"ported yet (ROADMAP.md queue 1: the moe, hybrid, encdec and "
-            f"vlm families under a mesh); {MESH_FAMILIES} are")
 
 
 class _Group(nn.Module):
@@ -433,6 +422,17 @@ def _encdec_decode(cfg, params: EncDec, h, cache, pos):
     return h
 
 
+def _rows(table, at):
+    """``table.index_select(0, at)`` for a plain ``at``; a DTensor table
+    (replicated by the rules) is read on each device's own copy."""
+    if not isinstance(table, L.DTensor):
+        return table.index_select(0, at)
+    mesh = table.device_mesh
+    whole = [L.Replicate()] * mesh.ndim
+    local = table.redistribute(mesh, whole).to_local().index_select(0, at)
+    return L.DTensor.from_local(local, mesh, whole, run_check=False)
+
+
 def _lm_head(cfg, params: LM, h):
     h = L.apply_norm(cfg, h, params.ln_f)
     w = params.tok_emb.T if cfg.tie_embeddings else params.lm_head
@@ -541,7 +541,7 @@ def _encdec_train(cfg, params: EncDec, frames, tokens, remat: bool):
                             xk, xv)
         return h + L.mlp_apply(cfg, lp.mlp, L.apply_norm(cfg, h, lp.ln2))
 
-    h = params.tok_emb[tokens.long()]
+    h = L.embed(params.tok_emb, tokens)
     h = constrain(h + params.dec_pos_emb[None, :h.shape[1]],
                   "batch", None, None)
     for lp in params.layers:
@@ -606,7 +606,7 @@ def build_model(cfg: ModelConfig, remat: bool = True) -> Model:
     def prefill(params: nn.Module, batch: Batch):
         if cfg.family == "encdec":
             enc_out = _encode(cfg, params, batch["frames"].to(dt))
-            h = params.tok_emb[batch["tokens"].long()]
+            h = L.embed(params.tok_emb, batch["tokens"])
             h = h + params.dec_pos_emb[None, :h.shape[1]]
             h, (k, v, xk, xv) = _decode_stack_encdec(cfg, params, h, enc_out)
             logits = _lm_head(cfg, params, h[:, -1:, :])[:, 0]
@@ -638,7 +638,7 @@ def build_model(cfg: ModelConfig, remat: bool = True) -> Model:
         h = L.embed(params.tok_emb, tokens)                  # (B, 1, D)
         if cfg.family == "encdec":
             at = torch.clamp(pos, max=MAX_DEC_POS - 1).reshape(1).long()
-            h = h + params.dec_pos_emb.index_select(0, at)[None]
+            h = h + _rows(params.dec_pos_emb, at)[None]
             h = _encdec_decode(cfg, params, h, cache, pos)
         elif mamba:
             h = _ssm_stack_decode(cfg, params, h, cache, pos)

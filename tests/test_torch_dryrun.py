@@ -18,11 +18,13 @@ group).
     stablelm-3b and mamba2-370m smoke losses and their gradients on
     ``meta`` weights run one stand-in forward and one backward a layer
     and no plain attention or scan.
-  * ``build_cell`` and ``run_cell`` on mamba2-370m's decode_32k and
-    train_4k cells on a fake (2, 2, 2) ``("pod", "data", "model")`` mesh:
-    records ``ok`` with flops > 0 and the reference's record keys; a
-    family not under a mesh yet records its ``NotImplementedError`` and
-    the CLI exits 1.
+  * ``build_cell`` and ``run_cell`` on a fake (2, 2, 2) ``("pod",
+    "data", "model")`` mesh: mamba2-370m's decode_32k and train_4k cells
+    record ``ok`` with flops > 0 and the reference's record keys; so do
+    the decode_32k and prefill_32k cells of mixtral-8x7b, zamba2-7b,
+    whisper-medium and llava-next-mistral-7b, and whisper-medium's
+    train_4k; a cell whose build raises (an unknown family) records its
+    error and the CLI exits 1.
 """
 import json
 import os
@@ -181,7 +183,7 @@ def test_model_on_meta_runs_the_stand_ins(arch, kernel):
 
 
 CELLS = """
-    import json
+    import dataclasses, json
     from pathlib import Path
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SHAPES
@@ -190,15 +192,18 @@ CELLS = """
     init_distributed("fake", world_size=8, rank=0)
     mesh = make_test_mesh(2, 2, 2, device="fake")
     for arch, shape in {cells}:
-        rec = dryrun.run_cell(get_config(arch), SHAPES[shape], mesh,
-                              "p2x2x2", Path({out!r}))
+        cfg = dataclasses.replace(get_config(arch), **{fields!r})
+        rec = dryrun.run_cell(cfg, SHAPES[shape], mesh, "p2x2x2",
+                              Path({out!r}))
         rec.pop("traceback", None)
         print(json.dumps(rec))
 """
 
 
-def _cells(cells, tmp_path):
-    out = _ok(CELLS.format(cells=cells, out=str(tmp_path)))
+def _cells(cells, tmp_path, **fields):
+    """``run_cell`` records of (arch, shape) cells, each config with
+    ``fields`` replaced."""
+    out = _ok(CELLS.format(cells=cells, out=str(tmp_path), fields=fields))
     return [json.loads(ln) for ln in out.strip().splitlines()
             if ln.startswith("{")]
 
@@ -222,12 +227,44 @@ def test_mamba2_cells_on_a_fake_three_axis_mesh(tmp_path):
     assert train["accum"] > 1 and train["hlo"]["collectives"]
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "zamba2-7b",
+                                  "whisper-medium", "llava-next-mistral-7b"])
+def test_serving_cells_of_every_family(arch, tmp_path):
+    """The moe, hybrid, encdec and vlm families' decode_32k and
+    prefill_32k cells at full size, as the dense and ssm ones."""
+    recs = _cells([(arch, "decode_32k"), (arch, "prefill_32k")], tmp_path)
+    assert [r["shape"] for r in recs] == ["decode_32k", "prefill_32k"]
+    for r in recs:
+        assert r["ok"], r.get("error")
+        assert r["hlo"]["flops"] > 0 and r["hlo"]["collectives"]
+        assert r["memory"]["peak_bytes_per_device"] >= \
+            r["memory"]["argument_bytes"] > 0
+
+
+def test_whisper_train_cell(tmp_path):
+    """whisper-medium's train_4k cell: the encoder over 1500 frames and
+    the cross attention at Sq != Sk, trained on meta DTensors."""
+    rec, = _cells([("whisper-medium", "train_4k")], tmp_path)
+    assert rec["ok"], rec.get("error")
+    assert rec["accum"] >= 1 and rec["hlo"]["flops"] > 0
+    assert rec["memory"]["peak_bytes_per_device"] >= \
+        rec["memory"]["argument_bytes"] > 0
+
+
 def test_unported_family_is_recorded_and_fails_the_cli(tmp_path):
-    recs = _cells([("mixtral-8x7b", "decode_32k")], tmp_path)
+    # every family runs under a mesh; a cell whose build raises (an
+    # unknown family) is recorded as failed, and fails the CLI
+    recs = _cells([("whisper-medium", "decode_32k")], tmp_path,
+                  family="rnn")
     assert not recs[0]["ok"]
-    assert recs[0]["error"].startswith("NotImplementedError")
+    assert recs[0]["error"].startswith("ValueError: whisper-medium: "
+                                       "unknown model family 'rnn'")
     cli = _run(f"""
+        import dataclasses
+        from repro_torch.configs import get_config
         from repro_torch.launch import dryrun
+        dryrun.get_config = lambda arch: dataclasses.replace(
+            get_config(arch), family="rnn")
         dryrun.main(["--arch", "whisper-medium", "--shape", "decode_32k",
                      "--single-pod-only", "--out", {str(tmp_path)!r}])
     """)

@@ -2,8 +2,9 @@
 (``test_torch_sharded_train.run_ranks``):
 
   * on a 1x1 mesh (one rank) the losses, grad norms, weights and AdamW
-    moments are bit-equal to the unsharded run's: every redistribution
-    is a no-op there and the local ops are the unsharded ones;
+    moments of every family's smoke config are bit-equal to the
+    unsharded run's: every redistribution is a no-op there and the local
+    ops are the unsharded ones;
   * the reference's elastic restart (``test_elastic_restart_across_
     meshes``): 2 steps of the stablelm-3b smoke config on 2x2 with a
     checkpoint, resumed on 4x1 for the 2 remaining steps, the losses
@@ -14,7 +15,9 @@ import pytest
 from test_torch_sharded_train import run_ranks
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-370m",
+                                  "mixtral-8x7b", "zamba2-7b",
+                                  "whisper-medium", "llava-next-mistral-7b"])
 def test_one_by_one_mesh_is_bit_equal_to_unsharded(arch):
     out = run_ranks(f"""
     from torch.distributed.tensor import DTensor

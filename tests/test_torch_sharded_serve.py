@@ -5,12 +5,17 @@ the unsharded model, in gloo processes
 The smoke configs in float32, from the reference's init weights
 (``convert.model_params_from_numpy``): parameters in the ``"serve"``
 layout, the batch and the decode cache laid out by
-``input_specs_sharding``.  stablelm-3b and mamba2-370m on 2x2 (heads
-split on the model axis, batch on data); chatglm3-6b on 1x4, whose 2 kv
-heads do not divide the model axis, so its cache is split along the
-sequence there and each decode step's K/V is written by the one device
-holding that position.  Inputs are made with numpy: the prompt, a cache
-of 24 positions filled to 16 with normal values, 3 decode tokens.
+``input_specs_sharding``.  stablelm-3b, mamba2-370m, mixtral-8x7b (the
+MoE layer's einsum dispatch, its 4 experts on the model axis),
+zamba2-7b, whisper-medium and llava-next-mistral-7b on 2x2 (heads split
+on the model axis, batch on data; whisper and llava at model level, with
+their frames or patches); chatglm3-6b on 1x4, whose 2 kv heads do not
+divide the model axis, so its cache is split along the sequence there
+and each decode step's K/V is written by the one device holding that
+position.  Inputs are made with numpy: the prompt (and whisper's frames
+or llava's patches), a cache of 24 positions filled to 16 with normal
+values, 3 decode tokens.  One more mixtral case prefills 4 x 2048
+tokens, two MoE groups split on the data axis.
 
 Held, for the prefill's last logits and every cache leaf, then 3 decode
 steps' logits and the cache after them:
@@ -48,20 +53,29 @@ def _leaves(cache):
     return out
 
 
-def _reference(arch, tmp):
-    """The reference's outputs on inputs made here, both saved."""
+def _reference(arch, tmp, prompt=S):
+    """The reference's outputs on inputs made here (a prompt of
+    ``prompt`` tokens), both saved."""
     jc = dataclasses.replace(j_smoke(arch), dtype="float32")
     jm = j_build(jc, remat=False)
     jp = jm.init(jax.random.PRNGKey(0))
     np.savez(tmp / "params.npz", **_flat(jax.tree.map(np.asarray, jp)))
     rng = np.random.default_rng(1)
-    tokens = rng.integers(0, jc.vocab_size, (B, S)).astype(np.int32)
+    tokens = rng.integers(0, jc.vocab_size, (B, prompt)).astype(np.int32)
     steps = rng.integers(0, jc.vocab_size, (STEPS, B, 1)).astype(np.int32)
+    extra = {}
+    if jc.family == "encdec":
+        extra["frames"] = rng.standard_normal(
+            (B, jc.enc_seq, jc.d_model)).astype(np.float32)
+    if jc.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (B, jc.n_patches, jc.d_model)).astype(np.float32)
     cache = j_init_cache(jc, B, S_MAX, filled=FILLED)
     filled = {k: (rng.standard_normal(v.shape).astype(v.dtype)
                   if np.issubdtype(v.dtype, np.floating) else v)
               for k, v in _leaves(cache).items()}
     np.savez(tmp / "inputs.npz", tokens=tokens, steps=steps,
+             **{"batch/" + k: v for k, v in extra.items()},
              **{"cache/" + k: v for k, v in filled.items()})
 
     def as_cache(leaves):
@@ -76,7 +90,9 @@ def _reference(arch, tmp):
         return out
 
     want = {}
-    logits, pcache = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(tokens)})
+    logits, pcache = jax.jit(jm.prefill)(
+        jp, {"tokens": jnp.asarray(tokens),
+             **{k: jnp.asarray(v) for k, v in extra.items()}})
     want["prefill logits"] = np.asarray(logits)
     want.update({"prefill " + k: v for k, v in _leaves(pcache).items()})
     decode = jax.jit(jm.decode)
@@ -90,9 +106,28 @@ def _reference(arch, tmp):
 
 @pytest.mark.parametrize("arch,mesh", [("stablelm-3b", (2, 2)),
                                        ("chatglm3-6b", (1, 4)),
-                                       ("mamba2-370m", (2, 2))])
+                                       ("mamba2-370m", (2, 2)),
+                                       ("mixtral-8x7b", (2, 2)),
+                                       ("zamba2-7b", (2, 2)),
+                                       ("whisper-medium", (2, 2)),
+                                       ("llava-next-mistral-7b", (2, 2))])
 def test_prefill_and_decode_on_a_mesh(arch, mesh, tmp_path):
-    want = _reference(arch, tmp_path)
+    _check_on_mesh(arch, mesh, tmp_path, _reference(arch, tmp_path))
+
+
+def test_moe_groups_split_on_data(tmp_path):
+    """mixtral's prefill of 4 x 2048 tokens makes two groups of 4096,
+    split on the data axis: the experts' weights, whose FFN dim the
+    serving layout spreads over data, are gathered there for the
+    products (``moe._experts``)."""
+    _check_on_mesh("mixtral-8x7b", (2, 2), tmp_path,
+                   _reference("mixtral-8x7b", tmp_path, prompt=2048))
+
+
+def _check_on_mesh(arch, mesh, tmp_path, want):
+    """The port's prefill and decode of ``arch`` on ``mesh`` against
+    ``want`` and against its unsharded path, on the inputs saved by
+    ``_reference``."""
     run_ranks(f"""
     from torch.distributed.tensor import DTensor
     from repro_torch.configs import get_smoke_config
@@ -136,7 +171,9 @@ def test_prefill_and_decode_on_a_mesh(arch, mesh, tmp_path):
             t.copy_(torch.from_numpy(inputs["cache/" + name]))
         return cache
 
-    batch = {{"tokens": torch.from_numpy(inputs["tokens"])}}
+    batch = {{"tokens": torch.from_numpy(inputs["tokens"]),
+             **{{k[6:]: torch.from_numpy(v) for k, v in inputs.items()
+                if k.startswith("batch/")}}}}
     tokens = [torch.from_numpy(t) for t in inputs["steps"]]
 
     plain = model_params_from_numpy(cfg, tree, device="cpu")

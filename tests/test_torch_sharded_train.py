@@ -5,11 +5,13 @@ JAX reference, in gloo processes on the CPU.
 group from one ``FileStore`` (``launch.mesh.init_distributed``), so no
 network is touched.  The tests:
 
-  * one train step of the stablelm-3b and mamba2-370m smoke configs in
-    float32 on a 2x2 mesh (ZeRO-1 storage over data, tensor parallel over
+  * one train step of the smoke configs of every family in float32 on
+    a 2x2 mesh (ZeRO-1 storage over data, tensor parallel over
     model: ``train_step``'s sharded path), from the reference's init
     weights (``convert.model_params_from_numpy``), against the port's
-    unsharded step and the reference's jitted step: the loss and the
+    unsharded step and the reference's jitted step (``CASES``: the MoE
+    layer with its experts on the model axis, llama4-scout, and with
+    their FFN dim there, mixtral with 3 experts): the loss and the
     gradient norm within rtol 1e-5, every gradient leaf (the storage
     layout's, gathered) within 1e-4 of its largest magnitude (the
     ``ROADMAP.md`` standard), and every updated weight within that plus
@@ -114,9 +116,23 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 B, S = 4, 32
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-370m"])
-def test_sharded_step_matches_unsharded_and_reference(arch, tmp_path):
-    jc = dataclasses.replace(j_smoke(arch), dtype="float32")
+# case -> (config, fields replaced in both packages' smoke config).  The
+# smoke configs' 4 experts divide the 2-way model axis (expert parallel,
+# llama4-scout's layout); 3 experts do not, so mixtral's experts take
+# the FFN dim on the model axis, as its 8 experts do on the 16-way axis.
+CASES = {"stablelm-3b": ("stablelm-3b", {}),
+         "mamba2-370m": ("mamba2-370m", {}),
+         "zamba2-7b": ("zamba2-7b", {}),
+         "whisper-medium": ("whisper-medium", {}),
+         "llava-next-mistral-7b": ("llava-next-mistral-7b", {}),
+         "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {}),
+         "mixtral-8x7b-3-experts": ("mixtral-8x7b", {"n_experts": 3})}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_matches_unsharded_and_reference(case, tmp_path):
+    arch, fields = CASES[case]
+    jc = dataclasses.replace(j_smoke(arch), dtype="float32", **fields)
     jm = j_build(jc, remat=False)
     jp = jm.init(jax.random.PRNGKey(0))
     np.savez(tmp_path / "params.npz", **_flat(jax.tree.map(np.asarray, jp)))
@@ -138,7 +154,8 @@ def test_sharded_step_matches_unsharded_and_reference(arch, tmp_path):
     from repro_torch.train.train_step import (make_train_step,
                                               optimizer_view, sharded_grads,
                                               to_compute, value_and_grad)
-    cfg = dataclasses.replace(get_smoke_config("{arch}"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config("{arch}"), dtype="float32",
+                              **{fields!r})
     model = build_model(cfg, remat=False)
     flat = dict(np.load("{tmp_path}/params.npz"))
     tree = {{}}

@@ -73,10 +73,13 @@ def test_resume_is_bit_exact(tmp_path):
         assert torch.equal(x, y)
 
 
-def test_mesh_raises():
-    # the dense and ssm families train under a mesh (test_torch_elastic);
-    # the others raise before the mesh is touched
-    with pytest.raises(NotImplementedError, match="mesh"):
+def test_mesh_raises(monkeypatch):
+    # every family trains under a mesh (test_torch_elastic,
+    # test_torch_sharded_train); an unknown family still raises, from
+    # build_model, before the mesh is touched (a string here)
+    monkeypatch.setattr(t_train_mod, "get_smoke_config", lambda a: (
+        dataclasses.replace(get_smoke_config(a), family="rnn")))
+    with pytest.raises(ValueError, match="unknown model family 'rnn'"):
         train("mixtral-8x7b", smoke=True, steps=1, batch=1, seq=8,
               ckpt_dir=None, resume=False, mesh="1x1", device="cpu")
 
