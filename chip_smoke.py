@@ -24,6 +24,12 @@ Phases, one line each (or a few):
      with the same five kinds of task and about 15% of the entries invalid;
      times per call at N = 4000 and 100000, Q = 4096 (graph replay and
      eager), per decision beside the bounds and the pick kernel's.
+     Then both kernels' run axis (B independent runs, each with its own
+     tables and tasks, in one launch): at B = 3 (queue lengths 0, 33 and
+     1024, the valid masks different) against their plain versions and
+     against B single launches, bit for bit, at N = 4000 and 100000
+     (4097 for the pick); timed at B = 4, N = 4000 (Q = 4096) beside 4
+     single calls, eager and replayed.
   3. the slice end to end: ``Experiment(ts, cfg, "flex-f")`` at the
      paper's cluster scale (4000 nodes), through the kernels for 24 slots
      and through the policy's plain hooks for the first 2; the queue
@@ -49,7 +55,11 @@ after phase 3:
      fifth of the tasks fitting nowhere, and at R = 3 and on a table off 16 bytes (the
      instance with R read at run time); times per sweep at N = 4000,
      Q = 4096 and Q = 64 (graph replay and eager) beside the bound, the
-     achieved GB/s and the earlier design's time.
+     achieved GB/s and the earlier design's time.  Then their run axis:
+     B = 3 runs of their own tables and 1024 tasks, N = 4000 and 4097 (the
+     instance that reads the table as scalars), against the plain
+     versions and B single launches, bit for bit; timed at B = 4, N =
+     4000, Q = 4096 beside 4 single calls, eager and replayed.
   b. the wavefront study: phase 3's configuration with
      ``admission_mode="wavefront"``, its first 3 slots; placements and
      admit slots must equal those slots of phase 3's queue-kernel run,
@@ -62,6 +72,27 @@ after phase 3:
      through the score-bucket dedup, against the sequential scan.
   e. the small replayed-noise wavefront run on the card against the CPU.
   f. profile: where one full-width wavefront queue's time goes.
+
+A study's seeds and sweep points as one simulation, after phase 5's
+profile:
+
+  6. phase 3's cluster and trace through ``Experiment.run(seeds=[0, 1],
+     sweep=[FlexParams.default(), FlexParams.default(alpha=0.95,
+     w_src=0.5)])``, 4 runs in one slot loop: (i) sequential with the
+     queue kernel, 24 slots: run (default, seed 0) equal to phase 3's on
+     every leaf, the other three equal to 3-slot single runs on their
+     first 3 slots, one ``flex_score_admit`` launch a slot for all 4
+     runs; decisions/s over the runs beside phase 3's, ms a slot, and,
+     over 3 profiled slots, the device's busy time, idle share and the
+     segment sums' share; (ii) wavefront (``topk=8``), 1 slot (cut from
+     phase b's depth to fit the time limit): run 0 making phase b's
+     decisions and metrics of that slot, runs (0, 1), (1, 0) and (1, 1)
+     equal to 1-slot single runs on every leaf; rounds and sweeps (the
+     four runs' sums), top-K launches per batched round, host ms per
+     batched round beside phase f's; (iii) the plain hooks, 1 slot (cut
+     from phase 3's 2): run 0 making phase 3's plain run's decisions and
+     metrics of that slot; host µs per decision step (one step decides in
+     all 4 runs).
 
 Headroom reclamation and the predictive estimators, after phase f:
 
@@ -360,6 +391,14 @@ WAVE_SLOTS = 3
 # Depth of phase c's wavefront_topk=0 loop, cut from 4 slots to 2 with
 # phase b (~7 s a slot).
 TOPK0_SLOTS = 2
+# Depths of phase 6's wavefront (~22 s a slot for 4 runs, ~12 s for each
+# single run it is held to) and plain-hook (~14 s a slot) studies of 4
+# runs, cut from phase b's and phase 3's depths to 1 slot to fit the time
+# limit: run (0, 0) is held to phase b's and phase 3's plain run's
+# decisions of that slot, and the wavefront's other runs to single runs
+# that deep on every leaf.
+STUDY_WAVE_SLOTS = 1
+STUDY_PLAIN_SLOTS = 1
 # Depth of phases n and o, raised from 24 and 12 slots to 27.  Under
 # flex-f the reclaim cap (1 - 0.1 P) is tighter than primary admission's
 # (1), so the pass places a pooled task only once the primary queue stops
@@ -523,6 +562,81 @@ def _eager_ms(fn, calls: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def _bits_equal(a, b) -> bool:
+    """Equal dtype, shape and bits."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _runs_vs_single(what, batched, singles) -> None:
+    """Each run's outputs (``batched``, leading with B) equal its single
+    launch's (``singles[b]``), bit for bit."""
+    for b, one in enumerate(singles):
+        for k, (x, y) in enumerate(zip(batched, one)):
+            if not _bits_equal(x[b], y):
+                raise AssertionError(f"{what}: run {b}'s output {k} differs "
+                                     f"from its single launch")
+
+
+def _log_run_axis_times(name, what, batched, singles) -> dict:
+    """Times (ms) of one launch for B runs and of B single launches,
+    replayed from a CUDA graph and eager; logged, and returned."""
+    t = dict(replayed=_median_ms(batched, reps=10, inner=2),
+             eager=_event_ms(batched, reps=10),
+             single_replayed=_median_ms(singles, reps=10, inner=2),
+             single_eager=_event_ms(singles, reps=10))
+    log(f"[runs] {name} {what}: {t['replayed']:.4f} ms replayed, "
+        f"{t['eager']:.4f} ms eager for one launch of 4 runs; 4 single "
+        f"launches {t['single_replayed']:.4f} / {t['single_eager']:.4f} ms "
+        f"({t['single_replayed'] / t['replayed']:.2f}x / "
+        f"{t['single_eager'] / t['eager']:.2f}x)")
+    return t
+
+
+def pick_run_axis(dev) -> None:
+    """Phase 2 (run axis): the pick kernel deciding in B runs at once."""
+    from repro_torch.kernels.flex_score import flex_score as fs
+    from repro_torch.kernels.flex_score.ops import pack_task
+    from repro_torch.kernels.flex_score.ref import pick_node_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for n in (4000, 4097):
+        tables = [_tables(n, gen, dev, tied=b == 1) for b in range(3)]
+        est, res, src = (torch.stack(x).contiguous() for x in zip(*tables))
+        for k, rows in enumerate(zip(*(_tasks(20, gen, dev)
+                                       for _ in range(3)))):
+            vec = torch.stack([pack_task(*row, dev) for row in rows])
+            got = fs.flex_score_pick(est, res, src, vec)
+            r = vec[:, :2]
+            want = pick_node_ref(est, res, src, r, vec[:, 2], vec[:, 4],
+                                 vec[:, 5], cap=vec[:, 3])[:2]
+            if not all(_bits_equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"flex_score_pick run axis N={n} task "
+                                     f"{k}: differs from the plain version")
+            _runs_vs_single(f"flex_score_pick run axis N={n}", got, [
+                [x[0] for x in fs.flex_score_pick(est[b], res[b], src[b],
+                                                  vec[b])]
+                for b in range(3)])
+        log(f"[runs] flex_score_pick N={n}: B = 3 runs (one table tied), "
+            f"20 tasks each, one launch bit-equal to the plain version and "
+            f"to 3 single launches")
+    n, runs = FULL["n_nodes"], 4
+    tables = [_tables(n, gen, dev, tied=False) for _ in range(runs)]
+    est, res, src = (torch.stack(x).contiguous() for x in zip(*tables))
+    vec = torch.stack([pack_task(torch.full((2,), 0.05, device=dev),
+                                 1.1 + 0.1 * b, 1.0, 1.0, 0.25, dev)
+                       for b in range(runs)])
+    _log_run_axis_times(
+        "flex_score_pick", f"N={n}",
+        lambda: fs.flex_score_pick(est, res, src, vec),
+        lambda: [fs.flex_score_pick(est[b], res[b], src[b], vec[b])
+                 for b in range(runs)])
+
+
 def kernel_vs_plain(dev) -> dict:
     from repro_torch.kernels.flex_score import flex_score as fs
     from repro_torch.kernels.flex_score.ops import pack_task
@@ -585,6 +699,7 @@ def kernel_vs_plain(dev) -> dict:
         f"(graph replay), plain {plain_ms * 1e3:.3f} us, eager call "
         f"{eager_ms * 1e3:.3f} us; bound {max(bound_bytes, bound_ops) * 1e6:.1f}"
         f" ns ({n_bytes} B at 3.35 TB/s)")
+    pick_run_axis(dev)
     return dict(name="flex_score_pick", route="cuda",
                 source="src/repro_torch/kernels/flex_score/csrc/flex_score.cu",
                 replaces="src/repro/kernels/flex_score/flex_score.py:40",
@@ -698,6 +813,7 @@ def queue_kernel_vs_plain(dev, pick: dict) -> dict:
             f"{pick['ms'] * 1e3:.4f} us in this run (earlier design, "
             f"{PICK_EARLIER_US} us in PERF.md's run P2) and its bytes bound "
             f"of {PICK_BOUND_US} us; plain {plain_ms:.1f} ms per call")
+        queue_run_axis(dev, gen)
         out = dict(name="flex_score_admit", route="cuda",
                    source="src/repro_torch/kernels/flex_score/csrc/"
                           "flex_score_admit.cu",
@@ -705,6 +821,70 @@ def queue_kernel_vs_plain(dev, pick: dict) -> dict:
                    launches=0, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return out
+
+
+def queue_run_axis(dev, gen) -> None:
+    """Phase 2 (run axis): the queue kernel admitting B runs' queues in
+    one launch, a cluster a run."""
+    from repro_torch.kernels.flex_score import flex_score as fs
+    from repro_torch.kernels.flex_score.ops import _task_mat
+    from repro_torch.kernels.flex_score.ref import admit_queue_ref
+
+    lens = (0, 33, 1024)
+    q = max(lens)
+    for n in (FULL["n_nodes"], QUEUE_NS[-1]):
+        states = [_queue_state(n, gen, dev, tied=b == 1) for b in range(3)]
+        state = [torch.stack(x).contiguous() for x in zip(*states)]
+        mat = torch.stack([_task_mat(*_task_rows(q, gen, dev))
+                           for _ in lens]).contiguous()
+        srcs = (torch.rand((3, q), generator=gen, device=dev) * 64).int()
+        pos = torch.arange(q, device=dev)
+        valid = torch.stack([
+            pos < lens[0],
+            pos < lens[1],
+            torch.rand(q, generator=gen, device=dev) < 0.85]).contiguous()
+        got, want = ([x.clone() for x in state] for _ in range(2))
+        k_pl = fs.flex_score_admit(*got, mat, srcs, valid)
+        p_pl = admit_queue_ref(*want, mat, srcs, valid)
+        what = f"flex_score_admit run axis N={n} lens {lens}"
+        if not torch.equal(k_pl, p_pl):
+            raise AssertionError(f"{what}: placements differ from the plain "
+                                 f"version")
+        for name, x, y in zip(("est_usage", "reserved", "requested",
+                               "n_tasks", "src_count"), got, want):
+            if not _bits_equal(x, y):
+                raise AssertionError(f"{what}: {name} differs from the plain "
+                                     f"version")
+        singles = []
+        for b, length in enumerate(lens):
+            one = [x[b].clone() for x in state]
+            pl = fs.flex_score_admit(*one, mat[b, :length].contiguous(),
+                                     srcs[b, :length].contiguous(),
+                                     valid[b, :length].contiguous())
+            singles.append([torch.cat([pl, pl.new_full((q - length,), -1)])]
+                           + one)
+        _runs_vs_single(what, [k_pl] + got, singles)
+        log(f"[runs] {what}: one launch of 3 clusters bit-equal to the "
+            f"plain version and to 3 single launches (placements and every "
+            f"node-state leaf; {[int((k_pl[b] >= 0).sum()) for b in range(3)]}"
+            f" placed)")
+    n, q, runs = FULL["n_nodes"], QUEUE, 4
+    states = [_queue_state(n, gen, dev, tied=False) for _ in range(runs)]
+    state = [torch.stack(x).contiguous() for x in zip(*states)]
+    mat = torch.stack([_task_mat(*_task_rows(q, gen, dev))
+                       for _ in range(runs)]).contiguous()
+    srcs = (torch.rand((runs, q), generator=gen, device=dev) * 64).int()
+    valid = torch.rand((runs, q), generator=gen, device=dev) < 0.85
+    views = [[x[b] for x in state] for b in range(runs)]
+    t = _log_run_axis_times(
+        "flex_score_admit", f"N={n} Q={q}",
+        lambda: fs.flex_score_admit(*state, mat, srcs, valid),
+        lambda: [fs.flex_score_admit(*views[b], mat[b], srcs[b], valid[b])
+                 for b in range(runs)])
+    log(f"[runs] flex_score_admit N={n} Q={q}: "
+        f"{t['replayed'] * 1e3 / (runs * q):.4f} us per decision over the "
+        f"4 runs replayed (one run's: "
+        f"{t['single_replayed'] * 1e3 / (runs * q):.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -838,6 +1018,7 @@ def batch_kernels_vs_plain(dev) -> list:
     check(f"N={n} Q={q} R=2 table off 16 bytes", est_off, res_off, src,
           rows, (1, 8, 40))
 
+    batch_run_axis(dev, gen)
     n, k = FULL["n_nodes"], 8
     out = []
     for q in (QUEUE, DEDUP_Q):
@@ -887,6 +1068,68 @@ def batch_kernels_vs_plain(dev) -> list:
                 bound_by=bound_by, library_ms=None))
         del src
     return out
+
+
+def batch_run_axis(dev, gen) -> None:
+    """Phase a (run axis): both sweeps scoring B runs' queues against
+    their own tables in one launch."""
+    from repro_torch.kernels.flex_score import flex_score as fs
+    from repro_torch.kernels.flex_score.ops import _task_mat
+    from repro_torch.kernels.flex_score.ref import (pick_node_batch_ref,
+                                                    pick_node_batch_topk_ref)
+
+    runs, q = 3, 1024
+    for n in (FULL["n_nodes"], 4097):
+        tables = [_tables(n, gen, dev, tied=b == 1) for b in range(runs)]
+        est, res = (torch.stack(x).contiguous() for x in list(zip(*tables))[:2])
+        src = torch.rand((runs, q, n), generator=gen, device=dev)
+        rows = [_task_rows(q, gen, dev) for _ in range(runs)]
+        mat = torch.stack([_task_mat(*r) for r in rows]).contiguous()
+        what = f"N={n} B={runs} Q={q}"
+        for k in (None, 1, 8):
+            if k is None:
+                got = fs.flex_score_batch_pick(est, res, src, mat)
+                plain = lambda b: _plain_rows(
+                    lambda e, rs, s_, r, p, c, wl, ws: pick_node_batch_ref(
+                        e, rs, s_, r, p, wl, ws, c)[:2],
+                    src[b], rows[b], est[b], res[b])
+                single = lambda b: fs.flex_score_batch_pick(
+                    est[b], res[b], src[b], mat[b])
+                name = "flex_score_batch_pick"
+            else:
+                got = fs.flex_score_batch_topk(est, res, src, mat, k)
+                plain = lambda b, k=k: _plain_rows(
+                    lambda e, rs, s_, r, p, c, wl, ws: pick_node_batch_topk_ref(
+                        e, rs, s_, r, p, wl, ws, c, k)[:2],
+                    src[b], rows[b], est[b], res[b])
+                single = lambda b, k=k: fs.flex_score_batch_topk(
+                    est[b], res[b], src[b], mat[b], k)
+                name = f"flex_score_batch_topk K={k}"
+            _runs_vs_single(f"{name} run axis {what} vs plain", got,
+                            [plain(b) for b in range(runs)])
+            _runs_vs_single(f"{name} run axis {what}", got,
+                            [single(b) for b in range(runs)])
+        log(f"[runs] batched sweeps {what}: the argmax and top-K (K in "
+            f"1, 8) of one launch bit-equal to the plain versions and to "
+            f"{runs} single launches (plan {fs.batch_plan(n, q, runs)})")
+        del src
+    n, q, runs, k = FULL["n_nodes"], QUEUE, 4, 8
+    tables = [_tables(n, gen, dev, tied=False) for _ in range(runs)]
+    est, res = (torch.stack(x).contiguous() for x in list(zip(*tables))[:2])
+    src = torch.rand((runs, q, n), generator=gen, device=dev)
+    mat = torch.stack([_task_mat(*_task_rows(q, gen, dev))
+                       for _ in range(runs)]).contiguous()
+    _log_run_axis_times(
+        "flex_score_batch_pick", f"N={n} Q={q}",
+        lambda: fs.flex_score_batch_pick(est, res, src, mat),
+        lambda: [fs.flex_score_batch_pick(est[b], res[b], src[b], mat[b])
+                 for b in range(runs)])
+    _log_run_axis_times(
+        "flex_score_batch_topk", f"N={n} Q={q} K={k}",
+        lambda: fs.flex_score_batch_topk(est, res, src, mat, k),
+        lambda: [fs.flex_score_batch_topk(est[b], res[b], src[b], mat[b], k)
+                 for b in range(runs)])
+    del src
 
 
 # ---------------------------------------------------------------------------
@@ -1017,8 +1260,8 @@ def _same_decisions(what: str, res, ref, n_slots=None) -> None:
 
 def slice_end_to_end(dev):
     """Phase 3; returns (the queue kernel's launches in the kernel run, the
-    trace, the kernel run's result, its decisions/s).  The plain path runs
-    the first PLAIN_SLOTS slots."""
+    trace, the kernel run's result, its decisions/s, the plain path's
+    result).  The plain path runs the first PLAIN_SLOTS slots."""
     from repro_torch.api import Experiment, admission
     from repro_torch.core import SimConfig
     from repro_torch.kernels.flex_score import flex_score as fs
@@ -1071,7 +1314,8 @@ def slice_end_to_end(dev):
     _same_decisions("use_kernel=False", runs[False][0], res_k, PLAIN_SLOTS)
     log(f"[slice] the plain path's placements and admit slots equal the "
         f"kernel run's first {PLAIN_SLOTS} slots")
-    return {"flex_score_admit": c["queue"]}, ts, res_k, rates[True]
+    return ({"flex_score_admit": c["queue"]}, ts, res_k, rates[True],
+            runs[False][0])
 
 
 # ---------------------------------------------------------------------------
@@ -1104,8 +1348,8 @@ def _timed_run(exp):
     return res, time.perf_counter() - t0, _counts()
 
 
-def wavefront_study(dev, ts, res_seq) -> int:
-    """Phase b; returns the top-K kernel's launches."""
+def wavefront_study(dev, ts, res_seq):
+    """Phase b; returns (the top-K kernel's launches, the run's result)."""
     from repro_torch.api import Experiment
     from repro_torch.core import SimConfig
     from repro_torch.traces import analysis
@@ -1137,7 +1381,7 @@ def wavefront_study(dev, ts, res_seq) -> int:
     log("[wave] summary: " + json.dumps(summary, sort_keys=True))
     log(f"[wave] placements and admit slots identical to the sequential "
         f"queue-kernel run's first {WAVE_SLOTS} slots")
-    return c["topk"]
+    return c["topk"], res
 
 
 def topk0_loop(dev, ts, res_seq, n_slots: int = TOPK0_SLOTS) -> int:
@@ -1244,9 +1488,10 @@ def _device_kernels(prof) -> list:
             for name, (count, ns) in totals.items()]
 
 
-def profile_wavefront(dev) -> None:
+def profile_wavefront(dev) -> float:
     """Phase f: one full-width queue of distinct tasks, untraced on the
-    host clock, then under torch.profiler."""
+    host clock, then under torch.profiler.  Returns the untraced ms per
+    round."""
     q = QUEUE
     from torch.profiler import ProfilerActivity, profile
 
@@ -1288,7 +1533,7 @@ def profile_wavefront(dev) -> None:
         f"{peak / 2**20:.1f} MiB")
     if busy_ms == 0:
         log("[wprofile] device time not visible to the profiler")
-        return
+        return wall_ms / c["rounds"]
     log(f"[wprofile] device busy {busy_ms:.2f} ms in {launches} kernels "
         f"({launches / c['rounds']:.1f} per round), idle share "
         f"{1 - busy_ms / wall_ms:.4f}")
@@ -1296,6 +1541,7 @@ def profile_wavefront(dev) -> None:
     for e in ranked[:8] + [e for e in ranked[8:] if "flex_batch" in e.key]:
         log(f"[wprofile]   {e.key[:60]}: {e.count} calls, "
             f"{e.self_device_time_total / 1e3:.3f} ms")
+    return wall_ms / c["rounds"]
 
 
 def profile_decisions(dev, decisions: int = 512) -> int:
@@ -1443,6 +1689,208 @@ def profile_study(dev, ts, n_slots: int = 3) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: a study's seeds and sweep points as one simulation
+# ---------------------------------------------------------------------------
+
+# The four runs of phase 6: two sweep points x two seeds; run (0, 0) is
+# phase 3's (and phase b's) run.
+STUDY_SEEDS = [0, 1]
+
+
+def _study_sweep(dev):
+    from repro_torch.core.types import FlexParams
+    return [FlexParams.default(device=dev),
+            FlexParams.default(alpha=0.95, w_src=0.5, device=dev)]
+
+
+def _run_of(res, p: int, s: int):
+    """Run (sweep point p, seed s) of a (P, S, ...) result."""
+    from repro_torch.core.simulator import _index
+    return _index(res, lambda x: x[p, s])
+
+
+def _same_run(what: str, got, want) -> None:
+    """Every leaf of ``got`` equals ``want``'s, bit for bit."""
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "metrics":
+            for field in a._fields:
+                if not _bits_equal(getattr(a, field), getattr(b, field)):
+                    raise AssertionError(f"{what}: metrics.{field} differs")
+        elif not _bits_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _same_first_slots(what: str, got, want, n_slots: int) -> None:
+    """``got`` ran the first ``n_slots`` slots of ``want``'s run: it holds
+    ``want``'s decisions of those slots and its metrics of them, bit for
+    bit."""
+    _same_decisions(what, got, want, n_slots)
+    for field in got.metrics._fields:
+        if not _bits_equal(getattr(got.metrics, field),
+                           getattr(want.metrics, field)[:n_slots]):
+            raise AssertionError(f"{what}: metrics.{field} differs")
+
+
+@contextlib.contextmanager
+def _counting(module, name: str, calls: list):
+    """``module.name`` counting its calls into ``calls`` while inside."""
+    orig = getattr(module, name)
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return orig(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _study_run(exp, dev):
+    """One batched run of phase 6's four: (result, wall s, counters)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = exp.run(seeds=STUDY_SEEDS, sweep=_study_sweep(dev))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, _counts()
+
+
+def _others_against_singles(what, ts, cfg, res, n_slots, dev,
+                            runs=((0, 1), (1, 0), (1, 1))) -> None:
+    """Runs ``runs`` of ``res`` (sweep point, seed) hold on their first
+    ``n_slots`` slots the decisions of single runs that deep; where
+    ``res`` is that deep too, every leaf."""
+    from repro_torch.api import Experiment
+
+    short = Experiment(ts, cfg._replace(n_slots=n_slots), "flex-f",
+                       device=dev)
+    sweep = _study_sweep(dev)
+    for p, s in runs:
+        one = _run_of(short.run(seeds=[s], sweep=[sweep[p]]), 0, 0)
+        if cfg.n_slots == n_slots:
+            _same_run(f"{what} run ({p}, {s})", _run_of(res, p, s), one)
+        else:
+            _same_decisions(f"{what} run ({p}, {s})", one,
+                            _run_of(res, p, s), n_slots)
+
+
+def batched_study(dev, ts, res_seq, seq_rate, res_plain, res_wave,
+                  round_ms) -> dict:
+    """Phase 6; returns the queue kernel's and the top-K kernel's
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Experiment, admission
+    from repro_torch.core import SimConfig
+
+    runs = len(STUDY_SEEDS) * len(_study_sweep(dev))
+    launches = {}
+
+    # (i) sequential, the queue kernel, phase 3's depth
+    cfg = SimConfig(**FULL, use_kernel=True)
+    exp = Experiment(ts, cfg, "flex-f", device=dev)
+    res, wall, c = _study_run(exp, dev)
+    _check_result(_run_of(res, 0, 0), cfg, ts.num_tasks)
+    _same_run("phase 6 sequential run (0, 0) against phase 3",
+              _run_of(res, 0, 0), res_seq)
+    _others_against_singles("phase 6 sequential", ts, cfg, res, 3, dev)
+    if c["queue"] != cfg.n_slots or c["queues"] != runs * cfg.n_slots:
+        raise AssertionError(f"phase 6: {c['queue']} flex_score_admit "
+                             f"launches for {c['queues']} non-empty queues "
+                             f"of {runs} runs in {cfg.n_slots} slots (every "
+                             f"slot has arrivals: one launch a slot)")
+    if c["pick"] or c["batch"] or c["topk"]:
+        raise AssertionError("phase 6's sequential study launched another "
+                             "kernel")
+    launches["flex_score_admit"] = c["queue"]
+    rate = c["decisions"] / wall
+    log(f"[runs] sequential, {runs} runs x {cfg.n_slots} slots in one "
+        f"simulation: {c['decisions']} decisions in {wall:.2f} s = "
+        f"{rate:.1f} decisions/s over the runs (phase 3, one run: "
+        f"{seq_rate:.1f}; {rate / seq_rate:.2f}x); {wall * 1e3 / cfg.n_slots:.2f}"
+        f" ms a slot; {c['queue']} flex_score_admit launches for "
+        f"{c['queues']} non-empty queues; run (0, 0) equal to phase 3's on "
+        f"every leaf, runs (0, 1), (1, 0), (1, 1) to 3-slot single runs")
+    # (the 24-slot run above warmed every shape of these 3 slots)
+    short = Experiment(ts, cfg._replace(n_slots=3), "flex-f", device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        short.run(seeds=STUDY_SEEDS, sweep=_study_sweep(dev))
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kernels = _device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
+    sums = sum(e.self_device_time_total for e in kernels
+               if "indexing_backward" in e.key) / 1e3 / 3
+    if busy:
+        log(f"[runs] sequential, 3 slots profiled: {traced_ms:.2f} ms a slot "
+            f"traced, device busy {busy:.2f} ms a slot in "
+            f"{sum(e.count for e in kernels) / 3:.1f} kernels (idle share "
+            f"{max(0.0, 1 - busy / traced_ms):.4f}); the segment sums "
+            f"(index_add_'s deterministic kernels) {sums:.2f} ms, "
+            f"{sums / busy:.4f} of it")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]:
+            log(f"[runs]   {e.key[:60]}: {e.count / 3:.1f} a slot, "
+                f"{e.self_device_time_total / 1e3 / 3:.3f} ms a slot")
+    else:
+        log("[runs] device time not visible to the profiler")
+    res = exp = None
+
+    # (ii) wavefront, STUDY_WAVE_SLOTS deep
+    cfg = SimConfig(**FULL, admission_mode="wavefront")._replace(
+        n_slots=STUDY_WAVE_SLOTS)
+    exp = Experiment(ts, cfg, "flex-f", device=dev)
+    batched_rounds = []
+    with _counting(admission, "_first_unsafe", batched_rounds):
+        res, wall, c = _study_run(exp, dev)
+    _same_first_slots("phase 6 wavefront run (0, 0) against phase b",
+                      _run_of(res, 0, 0), res_wave, STUDY_WAVE_SLOTS)
+    _others_against_singles("phase 6 wavefront", ts, cfg, res,
+                            STUDY_WAVE_SLOTS, dev)
+    if c["sweeps"] == 0 or not 0 < c["topk"] < c["sweeps"]:
+        raise AssertionError(f"phase 6 wavefront: {c['topk']} top-K launches "
+                             f"for {c['sweeps']} sweeps of {runs} runs")
+    if c["pick"] or c["queue"] or c["batch"]:
+        raise AssertionError("phase 6's wavefront study launched another "
+                             "kernel")
+    launches["flex_score_batch_topk"] = c["topk"]
+    n_rounds = len(batched_rounds)
+    log(f"[runs] wavefront, {runs} runs x {cfg.n_slots} slots: "
+        f"{c['decisions']} decisions in {wall:.2f} s = "
+        f"{c['decisions'] / wall:.1f} decisions/s; rounds {c['rounds']} and "
+        f"sweeps {c['sweeps']} (the runs' sums, as the loop counts them) in "
+        f"{n_rounds} batched rounds and {c['topk']} top-K launches "
+        f"({c['topk'] / n_rounds:.3f} a batched round); "
+        f"{wall * 1e3 / n_rounds:.3f} ms of host time a batched round "
+        f"(phase f, one run: {round_ms:.3f}); run (0, 0) makes phase b's "
+        f"decisions and metrics of its first {STUDY_WAVE_SLOTS} slot(s), "
+        f"runs (0, 1), "
+        f"(1, 0) and (1, 1) equal single runs on every leaf")
+    res = exp = None
+
+    # (iii) the plain hooks, STUDY_PLAIN_SLOTS deep
+    cfg = SimConfig(**FULL)._replace(n_slots=STUDY_PLAIN_SLOTS)
+    exp = Experiment(ts, cfg, "flex-f", device=dev)
+    steps = []
+    with _counting(admission, "admit_one", steps):
+        res, wall, c = _study_run(exp, dev)
+    _same_first_slots("phase 6 plain run (0, 0) against phase 3's plain run",
+                      _run_of(res, 0, 0), res_plain, STUDY_PLAIN_SLOTS)
+    if any(c[k] for k in ("pick", "queue", "batch", "topk")):
+        raise AssertionError("phase 6's plain path launched a kernel")
+    log(f"[runs] plain hooks, {runs} runs x {cfg.n_slots} slots: "
+        f"{c['decisions']} decisions in {wall:.2f} s = "
+        f"{c['decisions'] / wall:.1f} decisions/s; {len(steps)} decision "
+        f"steps, each deciding in all {runs} runs: "
+        f"{wall * 1e6 / len(steps):.1f} us of host time a step; run (0, 0) "
+        f"makes phase 3's plain run's decisions and metrics of its first "
+        f"{STUDY_PLAIN_SLOTS} slot(s)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases n and o: headroom reclamation and the predictive estimators
 # ---------------------------------------------------------------------------
 
@@ -1471,7 +1919,7 @@ def _timed_passes(go):
         t0 = time.perf_counter()
         out = admit(policy, node, requests, *args, **kw)
         torch.cuda.synchronize()
-        passes.append((policy.name, requests.shape[0],
+        passes.append((policy.name, requests.shape[-2],
                        time.perf_counter() - t0))
         return out
 
@@ -4467,9 +4915,10 @@ def main() -> int:
     _log_build(late_logs, t0)
     kernels.append(timed("v", ssd_bwd_vs_plain))
     kernels.append(timed("x", flash_bwd_vs_plain))
-    launches, ts, res_seq, seq_rate = timed("3", slice_end_to_end)
-    launches["flex_score_batch_topk"] = timed("b", wavefront_study, ts,
-                                              res_seq)
+    launches, ts, res_seq, seq_rate, res_plain = timed("3",
+                                                       slice_end_to_end)
+    launches["flex_score_batch_topk"], res_wave = timed(
+        "b", wavefront_study, ts, res_seq)
     launches["flex_score_batch_pick"] = timed("c", topk0_loop, ts,
                                               res_seq)
     timed("d", dedup_queue)
@@ -4478,7 +4927,14 @@ def main() -> int:
     timed("e", small_run_against_cpu, "wavefront")
     launches["flex_score_pick"] = timed("5", profile_decisions)
     timed("5 (study)", profile_study, ts)
-    timed("f", profile_wavefront)
+    round_ms = timed("f", profile_wavefront)
+    study = timed("6", batched_study, ts, res_seq, seq_rate, res_plain,
+                  res_wave, round_ms)
+    res_plain = res_wave = None
+    log(f"[launches] phase 6: flex_score_admit {study['flex_score_admit']}, "
+        f"flex_score_batch_topk {study['flex_score_batch_topk']}")
+    for name, count in study.items():
+        launches[name] += count
     recl = timed("n", reclaim_end_to_end, ts, res_seq, seq_rate)
     learned = timed("o", learned_end_to_end, ts)
     faults = timed("p", fault_end_to_end, ts, seq_rate)

@@ -1,8 +1,11 @@
 """``Experiment``: a workload x cluster x policy study.
 
-Port of ``repro.api.experiment``.  The reference vmaps seeds and
-``FlexParams`` sweep points into one program; this port loops over them
-and stacks the results, so the leading axes are the same:
+Port of ``repro.api.experiment``.  The reference traces the simulator
+once and ``vmap``s it over PRNG seeds and ``FlexParams`` sweep points;
+the port runs every (sweep point, seed) pair as one simulation with a
+leading run axis (``core.simulator.simulate_runs``): one slot loop, one
+host sync a slot and one kernel launch a queue, decision or sweep for all
+of them.  The leading axes are the reference's:
 
     exp = Experiment(trace, cluster, policy="flex-f", device="cuda")
     res = exp.run(seeds=range(10))                   # leaves: (10, S, ...)
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import simulator
-from repro_torch.core.noise import GeneratorNoise, NoiseSource
+from repro_torch.core.noise import GeneratorNoise, NoiseSource, RunNoise
 from repro_torch.core.types import FlexParams, SimConfig, SimResult, TaskSet
 
 
@@ -34,7 +37,12 @@ class Experiment:
     ``noise(seed)`` builds the noise source of one run; it defaults to
     ``GeneratorNoise(seed, device)``.  Sweep points are taken verbatim:
     ``prepare_params`` pinning is not applied to them, as in the
-    reference.
+    reference.  ``run`` simulates its P sweep points x S seeds as B = P S
+    runs of one simulation; run (p, s) is bit for bit the run of sweep
+    point p under ``noise(s)`` alone.  With ``use_kernel`` the sequential
+    queue kernel admits the B runs' queues in one launch of B clusters;
+    the card holds about 8 of them at once at the paper's 4000 nodes, and
+    more run in waves inside that launch.
     """
 
     def __init__(self, trace: TaskSet, cluster: Optional[SimConfig] = None,
@@ -62,14 +70,8 @@ class Experiment:
             self._table = torch.from_numpy(table).to(self.device)
         return self._table
 
-    def _one(self, params: FlexParams, seed: int) -> SimResult:
-        params = FlexParams(*(p.to(self.device) for p in params))
-        return simulator.simulate_core(
-            self.trace, self.arrival_table, self.cluster, self.policy,
-            params, self.noise(int(seed)), self.estimator, self.controller)
-
     def run(self, seeds=0, sweep=None) -> SimResult:
-        """Simulate every (sweep point, seed).
+        """Simulate every (sweep point, seed), all in one simulation.
 
         seeds: an int (no seed axis) or a sequence of ints (a leading seed
         axis on every leaf).  sweep: an optional list of FlexParams, or a
@@ -79,11 +81,22 @@ class Experiment:
                                              torch.Tensor))
         seed_list = [seeds] if single_seed else [int(s) for s in seeds]
         points = [self.params] if sweep is None else _unstack_params(sweep)
-        rows = []
-        for params in points:
-            runs = [self._one(params, s) for s in seed_list]
-            rows.append(runs[0] if single_seed else simulator._stack(runs))
-        return rows[0] if sweep is None else simulator._stack(rows)
+        pairs = [(p, s) for p in points for s in seed_list]
+        params = FlexParams(*(
+            torch.stack([p[i].to(self.device).reshape(()) for p, _ in pairs])
+            for i in range(len(FlexParams._fields))))
+        res = simulator.simulate_runs(
+            self.trace, self.arrival_table, self.cluster, self.policy,
+            params, RunNoise([self.noise(int(s)) for _, s in pairs]),
+            self.estimator, self.controller)
+        axes = (len(points), len(seed_list))
+        res = simulator._index(
+            res, lambda x: x.reshape(axes + tuple(x.shape[1:])))
+        if single_seed:
+            res = simulator._index(res, lambda x: x[:, 0])
+        if sweep is None:
+            res = simulator._index(res, lambda x: x[0])
+        return res
 
     def summarize(self, qos_target: float = 0.99, **run_kw):
         """``analysis.summarize`` of one ``run()``."""

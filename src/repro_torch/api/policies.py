@@ -298,6 +298,7 @@ class CurrentUsageEstimator:
     optional multiplicative measurement noise."""
 
     noise_std: float = 0.0
+    run_axis = True
 
     def refresh(self, prev_est: torch.Tensor, node_usage: torch.Tensor,
                 draw) -> torch.Tensor:
@@ -309,6 +310,7 @@ class EwmaEstimator:
     """EWMA smoothing (the related work's standard choice)."""
 
     decay: float = 0.7
+    run_axis = True
 
     def refresh(self, prev_est: torch.Tensor, node_usage: torch.Tensor,
                 draw) -> torch.Tensor:

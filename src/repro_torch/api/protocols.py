@@ -16,6 +16,12 @@ Optional policy hooks, checked by attribute:
 * ``queue_kernel_rows(ctx, tasks) -> (Q, R + 4)``: opt in to the queue
   kernel, which admits a whole sequential queue in one launch; declares
   that ``kernel_inputs``' ``src_frac`` is the Flex same-source share.
+
+Hooks see one run.  When a study runs B runs at once, admission maps
+them over the run axis (``admission.per_run``).  An estimator with
+``run_axis = True`` takes the run axis itself (``init_state(...,
+runs=B)``, ``refresh`` on (B, N, R) usage); any other is refreshed run by
+run.
 """
 from __future__ import annotations
 

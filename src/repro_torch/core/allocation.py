@@ -81,22 +81,40 @@ def wfs_allocate(demand: torch.Tensor, request: torch.Tensor,
 
     ``capacity`` is a scalar, (N,) or (N, R).  Returns (alloc (T, R),
     node_usage (N, R)).
+
+    With a run axis (demand (B, T, R), placement and active (B, T),
+    capacity a scalar, (B, N) or (B, N, R); ``request`` (T, R) shared)
+    the B runs' tasks and nodes are one problem of B T tasks on B N
+    nodes, run b's node n the segment ``b * N + n``: every segment gets
+    the rows a run of its own gives it, in the same order, so its sums
+    are the same bits.  Returns (alloc (B, T, R), node_usage (B, N, R)).
     """
-    mask = active.to(torch.float32)
+    lead = tuple(demand.shape[:-2])
+    runs = demand.shape[0] if lead else 1
+    t, r = demand.shape[-2:]
+    mask = active.to(torch.float32).reshape(-1)
     seg = torch.where(active, placement, num_nodes - 1)
     seg = torch.clamp(seg, 0, num_nodes - 1)
-    r = demand.shape[-1]
+    if lead:
+        seg = seg + num_nodes * torch.arange(
+            runs, dtype=seg.dtype, device=seg.device)[:, None]
+    seg = seg.reshape(-1)
     cap = torch.as_tensor(capacity, dtype=torch.float32,
                           device=demand.device)
-    if cap.dim() == 1:
-        cap = cap[:, None]
-    cap_node = torch.broadcast_to(cap, (num_nodes, r))
+    if cap.dim() == len(lead) + 1:
+        cap = cap[..., None]
+    cap_node = torch.broadcast_to(cap, lead + (num_nodes, r)).reshape(-1, r)
+    n_seg = runs * num_nodes
+    demand = demand.reshape(-1, r)
+    request = torch.broadcast_to(request, lead + (t, r)).reshape(-1, r)
 
     weights = torch.clamp(request.max(dim=-1).values, min=_EPS)
     a1 = waterfill(cap_node, weights, torch.minimum(demand, request), seg,
-                   mask, num_nodes, iters)
-    rem = cap_node - segment_sum(a1, seg, num_nodes)
-    a2 = waterfill(rem, weights, demand - a1, seg, mask, num_nodes, iters)
+                   mask, n_seg, iters)
+    rem = cap_node - segment_sum(a1, seg, n_seg)
+    a2 = waterfill(rem, weights, demand - a1, seg, mask, n_seg, iters)
 
     alloc = (a1 + a2) * mask[:, None]
-    return alloc, segment_sum(alloc, seg, num_nodes)
+    usage = segment_sum(alloc, seg, n_seg)
+    return (alloc.view(lead + (t, r)),
+            usage.view(lead + (num_nodes, r)))

@@ -18,6 +18,12 @@ A generator source draws the fault schedule and the jitter table from
 generators of their own, as the reference takes them from streams of
 their own, so turning faults or jitter on leaves the demand draws as
 they were.
+
+A simulation of B runs (``core.simulator.simulate_runs``) keeps the B
+runs' sources together in a :class:`RunNoise`: every draw is the runs'
+draws stacked, run b's from its own source in the order a single run of
+it draws, so a batched run under ``GeneratorNoise`` is bit-equal to the
+loop of single runs, not only under ``ReplayNoise``.
 """
 from __future__ import annotations
 
@@ -138,3 +144,47 @@ class ReplayNoise:
             "ReplayNoise samples no fault schedule; pass the reference's "
             "as simulate(..., fault_schedule=...) "
             "(convert.fault_schedule_from_numpy)")
+
+
+def stack_runs(parts):
+    """A list of B per-run tensors as one with a leading run axis: a view
+    when B = 1 (no launch)."""
+    if len(parts) == 1:
+        return parts[0].unsqueeze(0)
+    return torch.stack(parts)
+
+
+class RunNoise:
+    """The noise sources of B runs, drawn together.
+
+    Each method returns the runs' draws with a leading run axis: run b's
+    come from ``sources[b]``, which draws them in the order a single run
+    of it would (demand then estimate, slot after slot; the jitter table
+    and the fault schedule from streams of their own).
+    """
+
+    def __init__(self, sources: Sequence[NoiseSource]):
+        self.sources = list(sources)
+
+    def __len__(self) -> int:
+        return len(self.sources)
+
+    def demand(self, slot: int, n_tasks: int) -> torch.Tensor:
+        """(B, n_tasks) f32."""
+        return stack_runs([s.demand(slot, n_tasks) for s in self.sources])
+
+    def estimate(self, slot: int, shape: Sequence[int]) -> torch.Tensor:
+        """f32 of ``shape``, which leads with B: run b's draw of
+        ``shape[1:]``."""
+        return stack_runs([s.estimate(slot, tuple(shape[1:]))
+                           for s in self.sources])
+
+    def jitter(self, n_tasks: int, jitter: int) -> torch.Tensor:
+        """(B, n_tasks) i32."""
+        return stack_runs([s.jitter(n_tasks, jitter) for s in self.sources])
+
+    def faults(self, fcfg, n_slots: int, n_nodes: int):
+        """A FaultSchedule whose tables lead with B."""
+        from repro_torch.faults.injection import stack_schedules
+        return stack_schedules([s.faults(fcfg, n_slots, n_nodes)
+                                for s in self.sources])

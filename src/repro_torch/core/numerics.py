@@ -15,34 +15,52 @@ import numpy as np
 import torch
 
 
-def _f64(x):
-    """A float32 value widened to float64: a tensor, or a Python float
-    (a scalar never becomes a device tensor, which would copy from the
-    host and wait)."""
+def _f32(x):
+    """A tensor as float32, or a Python number rounded to float32 (a
+    scalar never becomes a device tensor, which would copy from the host
+    and wait)."""
     if isinstance(x, torch.Tensor):
-        return x.to(torch.float32).double()
+        return x.to(torch.float32)
     return float(np.float32(x))
 
 
 def fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once, like a hardware FMA.
 
-    The product of two float32 values is exact in float64.  The float64
-    sum is made round-to-odd (TwoSum gives its exact error; an inexact
-    result with an even last bit moves one ulp toward the error), and
-    round-to-odd at 53 bits followed by round-to-nearest at 24 bits is
-    the correctly rounded float32 result.  At least one argument is a
-    tensor.
+    The product of two float32 values is exact in float64, and so is the
+    error ``err`` of the float64 sum ``s`` (TwoSum).  Rounding ``s`` to
+    float32 (``r``) is right except where ``s`` lies exactly halfway
+    between two float32 values and ``err`` is not zero: then the exact sum
+    lies on the error's side, and rounds to the neighbour there.  ``s`` is
+    halfway iff its reflection ``2 s - r`` (exact) is itself a float32.
+    Element-wise arithmetic alone, so ``torch.func.vmap`` maps it; the
+    float32 operands widen inside the float64 operations.  At least one
+    argument is a tensor.
     """
-    a, b, c = (_f64(x) for x in (a, b, c))
-    p = a * b
+    a, b, c = (_f32(x) for x in (a, b, c))
+    # Widen the operand with more dimensions: a 0-d tensor takes no part
+    # in type promotion against a dimensioned one.
+    if isinstance(a, torch.Tensor) and (not isinstance(b, torch.Tensor)
+                                        or a.dim() >= b.dim()):
+        p = a.double() * b
+    elif isinstance(b, torch.Tensor):
+        p = b.double() * a
+    else:
+        p = a * b                       # Python floats: exact
+    if not isinstance(p, torch.Tensor) or p.dim() == 0:
+        c = c.double() if isinstance(c, torch.Tensor) else c
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
-    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
-    s = torch.where(inexact_even, torch.nextafter(s, toward), s)
-    return s.float()
+    r = s.float()
+    d = s - r
+    other = s + d                       # 2 s - r, exact
+    near = other.float()
+    # s is halfway when near is 2 s - r itself (never at an infinity);
+    # then near - r = 2 d, and the exact sum rounds to near when err lies
+    # on d's side
+    up = ((near - other) == 0) & (err * d > 0)
+    return torch.where(up, near, r)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,10 @@ def task_qos(alloc: torch.Tensor, demand: torch.Tensor,
 
 
 def cluster_qos(q: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Q(t): mean of q over active tasks, 1.0 when none is active (() f32)."""
-    n = active.sum(dtype=torch.int32)
-    ok = (q & active).sum(dtype=torch.int32)
+    """Q(t): mean of q over active tasks, 1.0 when none is active (() f32;
+    (B,) for (B, T) inputs, each run's own)."""
+    n = active.sum(dim=-1, dtype=torch.int32)
+    ok = (q & active).sum(dim=-1, dtype=torch.int32)
     frac = ok.float() / torch.clamp(n, min=1).float()
     return torch.where(n > 0, frac, torch.ones_like(frac))
 

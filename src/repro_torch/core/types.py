@@ -4,7 +4,10 @@ Mirrors ``repro.core.types``: every resource quantity is normalized to one
 node's capacity (C = 1.0 per resource), resources are indexed [CPU, MEM]
 (R = 2), and every function is generic over the trailing resource axis.
 Dtypes are pinned to the reference's: float32 for quantities, int32 for
-indices and counts.
+indices and counts.  A simulation of B runs at once
+(``core.simulator.simulate_runs``) gives every leaf of ``NodeState``,
+``FlexParams`` and ``ControllerState`` a leading run axis, and the
+result's leaves lead with it too.
 """
 from __future__ import annotations
 

@@ -7,6 +7,13 @@ and ``refresh(state, node_usage, draw)``, where ``draw(shape)`` returns
 the estimator's standard normals for the slot.  A legacy stateless
 estimator (``refresh(prev_est, node_usage, draw) -> est``) is adapted by
 :class:`StatelessAdapter`, whose state carries ``est`` alone.
+
+An estimator with ``run_axis = True`` serves B runs at once
+(``core.simulator.simulate_runs``): ``init_state(..., runs=B)`` gives
+every per-node leaf a run axis in front of its node axis (``est`` (B, N,
+R)), and ``refresh`` takes usage (B, N, R) and a ``draw`` whose shape
+leads with B, each run refreshed exactly as a run of its own.  The
+simulator refreshes any other estimator run by run.
 """
 from __future__ import annotations
 
@@ -23,11 +30,16 @@ class EstimatorState(NamedTuple):
     aux: Any = ()      # estimator-specific state
 
 
+def node_shape(n_nodes: int, n_resources: int, runs=None) -> tuple:
+    """(N, R), or (B, N, R) for ``runs`` = B."""
+    return (() if runs is None else (runs,)) + (n_nodes, n_resources)
+
+
 def zeros_state(n_nodes: int, n_resources: int = NUM_RESOURCES,
-                aux: Any = (), *, device="cuda") -> EstimatorState:
+                aux: Any = (), *, device="cuda", runs=None) -> EstimatorState:
     return EstimatorState(
-        est=torch.zeros((n_nodes, n_resources), dtype=torch.float32,
-                        device=device), aux=aux)
+        est=torch.zeros(node_shape(n_nodes, n_resources, runs),
+                        dtype=torch.float32, device=device), aux=aux)
 
 
 def is_stateful(est) -> bool:
@@ -42,9 +54,13 @@ class StatelessAdapter:
 
     inner: Any
 
+    @property
+    def run_axis(self) -> bool:
+        return bool(getattr(self.inner, "run_axis", False))
+
     def init_state(self, n_nodes: int, n_resources: int = NUM_RESOURCES, *,
-                   device="cuda") -> EstimatorState:
-        return zeros_state(n_nodes, n_resources, device=device)
+                   device="cuda", runs=None) -> EstimatorState:
+        return zeros_state(n_nodes, n_resources, device=device, runs=runs)
 
     def refresh(self, state: EstimatorState, node_usage: torch.Tensor,
                 draw) -> EstimatorState:

@@ -9,6 +9,11 @@ buffer.  The ``learned`` estimator lives in
 
 A windowed estimator's slot counter is a Python int carried in its
 state, so a refresh writes its ring slot without reading the device.
+
+All three serve B runs at once (``run_axis``): ``current`` and ``ewma``
+are elementwise, and ``quantile``'s ring of B runs is (window, B, N, R),
+the window axis first as in one run's, so the ring functions below run
+unchanged.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 from repro_torch.core import estimator as _est
 from repro_torch.core.numerics import fma
 from repro_torch.core.types import NUM_RESOURCES
-from repro_torch.estimators.base import EstimatorState, zeros_state
+from repro_torch.estimators.base import (EstimatorState, node_shape,
+                                         zeros_state)
 from repro_torch.estimators.registry import register_estimator
 
 
@@ -78,10 +84,11 @@ class CurrentEstimator:
     """
 
     noise_std: float = 0.0
+    run_axis = True
 
     def init_state(self, n_nodes: int, n_resources: int = NUM_RESOURCES, *,
-                   device="cuda") -> EstimatorState:
-        return zeros_state(n_nodes, n_resources, device=device)
+                   device="cuda", runs=None) -> EstimatorState:
+        return zeros_state(n_nodes, n_resources, device=device, runs=runs)
 
     def refresh(self, state: EstimatorState, node_usage: torch.Tensor,
                 draw) -> EstimatorState:
@@ -95,10 +102,11 @@ class EwmaEstimator:
     """EWMA smoothing; ``decay=0`` is ``current`` exactly."""
 
     decay: float = 0.7
+    run_axis = True
 
     def init_state(self, n_nodes: int, n_resources: int = NUM_RESOURCES, *,
-                   device="cuda") -> EstimatorState:
-        return zeros_state(n_nodes, n_resources, device=device)
+                   device="cuda", runs=None) -> EstimatorState:
+        return zeros_state(n_nodes, n_resources, device=device, runs=runs)
 
     def refresh(self, state: EstimatorState, node_usage: torch.Tensor,
                 draw) -> EstimatorState:
@@ -112,19 +120,21 @@ class QuantileWindowEstimator:
     """Sliding peak-window quantile predictor.
 
     L-hat is the ``q``-quantile of the last ``window`` usage samples per
-    node and resource.  State: the ``(window, N, R)`` ring buffer and the
-    slot counter.
+    node and resource.  State: the ``(window, N, R)`` ring buffer
+    (``(window, B, N, R)`` for B runs) and the slot counter.
     """
 
     window: int = 12   # 1 h of history at the trace's 5-minute slots
     q: float = 0.9
+    run_axis = True
 
     def init_state(self, n_nodes: int, n_resources: int = NUM_RESOURCES, *,
-                   device="cuda") -> EstimatorState:
-        buffer = torch.zeros((self.window, n_nodes, n_resources),
-                             dtype=torch.float32, device=device)
+                   device="cuda", runs=None) -> EstimatorState:
+        buffer = torch.zeros(
+            (self.window,) + node_shape(n_nodes, n_resources, runs),
+            dtype=torch.float32, device=device)
         return zeros_state(n_nodes, n_resources, aux=(buffer, 0),
-                           device=device)
+                           device=device, runs=runs)
 
     def refresh(self, state: EstimatorState, node_usage: torch.Tensor,
                 draw) -> EstimatorState:

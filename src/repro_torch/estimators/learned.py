@@ -27,7 +27,7 @@ from torch import nn
 
 from repro_torch.core.numerics import fma, sqrt
 from repro_torch.core.types import NUM_RESOURCES, TaskSet
-from repro_torch.estimators.base import EstimatorState
+from repro_torch.estimators.base import EstimatorState, node_shape
 from repro_torch.estimators.builtin import ring_chronological, ring_push
 from repro_torch.estimators.registry import register_estimator
 
@@ -215,7 +215,8 @@ def _thaw(frozen: tuple, device) -> Params:
 
 @dataclasses.dataclass(frozen=True)
 class LearnedUsageEstimator:
-    """MLP next-usage predictor over a ``(window, N, R)`` ring buffer.
+    """MLP next-usage predictor over a ``(window, N, R)`` ring buffer
+    (``(window, B, N, R)`` for B runs).
 
     ``frozen_params`` keeps the object hashable; ``init_state`` thaws
     them onto the state's device.  Predictions are clipped to [0, 1]: a
@@ -225,6 +226,7 @@ class LearnedUsageEstimator:
     window: int = 12
     hidden: int = 8
     frozen_params: Any = None   # nested tuples from _freeze; None = untrained
+    run_axis = True
 
     @classmethod
     def untrained(cls, window: int = 12,
@@ -262,23 +264,24 @@ class LearnedUsageEstimator:
         return cls.from_params(params, window, hidden)
 
     def init_state(self, n_nodes: int, n_resources: int = NUM_RESOURCES, *,
-                   device="cuda") -> EstimatorState:
+                   device="cuda", runs=None) -> EstimatorState:
         frozen = self.frozen_params
         if frozen is None:
             frozen = LearnedUsageEstimator.untrained(
                 self.window, self.hidden).frozen_params
-        buffer = torch.zeros((self.window, n_nodes, n_resources),
-                             dtype=torch.float32, device=device)
+        shape = node_shape(n_nodes, n_resources, runs)
+        buffer = torch.zeros((self.window,) + shape, dtype=torch.float32,
+                             device=device)
         return EstimatorState(
-            est=torch.zeros((n_nodes, n_resources), dtype=torch.float32,
-                            device=device),
+            est=torch.zeros(shape, dtype=torch.float32, device=device),
             aux=(buffer, 0, _thaw(frozen, device)))
 
     def refresh(self, state: EstimatorState, node_usage: torch.Tensor,
                 draw) -> EstimatorState:
         buffer, t, params = state.aux
         buffer = ring_push(buffer, t, node_usage)
-        x = ring_chronological(buffer, t).movedim(0, -1)   # (N, R, W)
+        # (N, R, W), or (B, N, R, W): the MLP's products batched over runs
+        x = ring_chronological(buffer, t).movedim(0, -1)
         est = torch.clamp(mlp_apply(params, x), 0.0, 1.0)
         return EstimatorState(est=est, aux=(buffer, t + 1, params))
 

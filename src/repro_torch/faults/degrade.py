@@ -53,7 +53,8 @@ def select_victims(evictable: torch.Tensor, rank: torch.Tensor,
                    admit_slot: torch.Tensor, n_slots: int,
                    max_evict: int) -> torch.Tensor:
     """(T,) bool mask of at most ``max_evict`` victims, by rank
-    descending, then newest admission first.
+    descending, then newest admission first; with leading run axes (B, T)
+    inputs, each run's own.
 
     The reference takes ``lax.top_k`` of the key ``rank * (n_slots + 1) +
     admit_slot + 1``, on which many tasks tie; ``top_k`` puts the lower
@@ -61,13 +62,13 @@ def select_victims(evictable: torch.Tensor, rank: torch.Tensor,
     (``torch.topk`` promises no order among ties).  The key's values are
     small integers, exact in float32 however it is rounded.
     """
-    t = evictable.shape[0]
+    t = evictable.shape[-1]
     k = min(int(max_evict), t)
     if k <= 0:
-        return torch.zeros(t, dtype=torch.bool, device=evictable.device)
+        return torch.zeros_like(evictable, dtype=torch.bool)
     key = (rank.to(torch.float32) * float(n_slots + 1)
            + admit_slot.to(torch.float32) + 1.0)
     key = torch.where(evictable & (rank > 0), key, 0.0)
-    top_val, top_idx = torch.sort(key, descending=True, stable=True)
-    out = torch.zeros(t, dtype=torch.bool, device=evictable.device)
-    return out.index_put_((top_idx[:k],), top_val[:k] > 0.0)
+    top_val, top_idx = torch.sort(key, dim=-1, descending=True, stable=True)
+    out = torch.zeros_like(evictable, dtype=torch.bool)
+    return out.scatter(-1, top_idx[..., :k], top_val[..., :k] > 0.0)

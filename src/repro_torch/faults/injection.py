@@ -165,6 +165,25 @@ class FaultSchedule(NamedTuple):
                                for x in self))
 
 
+def stack_schedules(schedules) -> FaultSchedule:
+    """B runs' schedules as one whose tables lead with B (a ``None``
+    drain table reads as all-False where another run has one)."""
+    from repro_torch.core.noise import stack_runs
+
+    first = schedules[0]
+    drains = [x.draining for x in schedules]
+    if all(d is None for d in drains):
+        draining = None
+    else:
+        draining = stack_runs([
+            torch.zeros_like(x.node_up) if d is None else d
+            for x, d in zip(schedules, drains)])
+    return FaultSchedule(
+        *(stack_runs([getattr(x, f) for x in schedules])
+          for f in ("node_up", "capacity", "demand_mult")),
+        draining=draining)
+
+
 def _windows(starts: torch.Tensor, duration: int) -> torch.Tensor:
     """(S, N) bool: True for ``duration`` slots from each start (its own
     slot included); overlapping windows merge."""

@@ -133,7 +133,13 @@ def blend_estimate(est: torch.Tensor, requested: torch.Tensor, is_open,
 
 def reclaim_width(state: int, pool_width: int, gcfg) -> int:
     """How many head-of-pool reclaim candidates stay valid: the whole pool
-    while CLOSED, none while OPEN, ``probe_reclaim`` while HALF_OPEN."""
+    while CLOSED, none while OPEN, ``probe_reclaim`` while HALF_OPEN.  A
+    tensor of states (one a run) gives a tensor of widths, on the device
+    and without reading it."""
+    if isinstance(state, torch.Tensor):
+        half = min(int(gcfg.probe_reclaim), int(pool_width))
+        return torch.where(state == OPEN, 0, torch.where(
+            state == HALF_OPEN, half, int(pool_width))).to(state.dtype)
     if state == OPEN:
         return 0
     if state == HALF_OPEN:

@@ -18,7 +18,9 @@
 //
 // Design: one block of 1024 threads strides over the rows, keeping its
 // best (score, index) pair; warp shuffles and then one warp reduce the
-// block's 1024 pairs.  Comparing (score desc, index asc) gives the lowest
+// block's 1024 pairs.  With a run axis (B independent runs, each with its
+// own node table and task) block b decides for run b: one launch of B
+// blocks makes one decision in every run.  Comparing (score desc, index asc) gives the lowest
 // index on ties, as argmax does.  The TPU kernel's tiles, zero padding and
 // tail mask have no counterpart: the loop stops at N.
 //
@@ -64,6 +66,15 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ out_score, int* __restrict__ out_idx) {
   __shared__ float warp_s[kWarps];
   __shared__ int warp_i[kWarps];
+
+  // Run blockIdx.x's table, task and output.
+  const size_t run = blockIdx.x;
+  est += run * n * r;
+  reserved += run * n * r;
+  src_frac += run * n;
+  task += run * (r + 4);
+  out_score += run;
+  out_idx += run;
 
   const float penalty = task[r];
   const float cap = task[r + 1];
@@ -111,12 +122,15 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Launches one decision on `stream`; returns cudaGetLastError() as an int.
+// Launches one decision in each of `runs` runs on `stream` (run b's
+// tables, src_frac, task vector and output at b times their size); returns
+// cudaGetLastError() as an int.
 extern "C" int flex_score_pick(const float* est, const float* reserved,
                                const float* src_frac, const float* task, int n,
                                int r, float* out_score, int* out_idx,
-                               cudaStream_t stream) {
-  flex_pick_kernel<<<1, kThreads, 0, stream>>>(est, reserved, src_frac, task,
-                                               n, r, out_score, out_idx);
+                               cudaStream_t stream, int runs) {
+  if (runs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  flex_pick_kernel<<<runs, kThreads, 0, stream>>>(
+      est, reserved, src_frac, task, n, r, out_score, out_idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,11 @@
 // the node table, a reduction across the cluster, a commit) sets the time.
 //
 // Design.  One thread-block cluster of kCluster CTAs admits the queue.
+// With a run axis (B independent runs, each with its own node table and
+// queue) the grid holds B clusters and cluster b admits run b's queue into
+// run b's tables; the clusters share nothing, so everything below is per
+// cluster.  About 8 clusters of the largest on-chip plan (N = 4000 at
+// R = 2: 69.6 KB a CTA) fit an H100 at once; more runs go in waves.
 // CTA k owns the node rows [k rows, (k + 1) rows) and keeps them in its
 // shared memory for the whole queue: est and reserved (stored (R, rows),
 // one resource's column contiguous), n_tasks and, where they fit (the
@@ -238,6 +243,17 @@ __global__ void __launch_bounds__(kThreads)
                       int* __restrict__ placements) {
   constexpr int kWarps = kThreads / 32;
   const int r = R > 0 ? R : r_run;
+  // This cluster's run: its tables, queue and placements.
+  const size_t run = blockIdx.x / kCluster;
+  est += run * n * r;
+  reserved += run * n * r;
+  requested += run * n * r;
+  n_tasks += run * n;
+  src_count += run * n * kSrcBuckets;
+  task_mat += run * q_len * (r + 4);
+  srcs += run * q_len;
+  valid += run * q_len;
+  placements += run * q_len;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
@@ -386,10 +402,10 @@ template <int R, int kThreads, bool kSrcOnChip>
 int launch(const float* est, float* reserved, float* requested, int* n_tasks,
            int* src_count, const float* task_mat, const int* srcs,
            const unsigned char* valid, int n, int r, int q, int rows,
-           int smem, int* placements, cudaStream_t stream) {
+           int smem, int* placements, cudaStream_t stream, int runs) {
   auto kernel = flex_admit_kernel<R, kThreads, kSrcOnChip>;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
+  cfg.gridDim = dim3(kCluster);   // one cluster, for the scheduling check
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
@@ -417,6 +433,7 @@ int launch(const float* est, float* reserved, float* requested, int* n_tasks,
     if (clusters < 1) return kErrCluster;
     checked_smem = smem;
   }
+  cfg.gridDim = dim3(kCluster * runs);   // a cluster a run
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, est, reserved, requested,
                                        n_tasks, src_count, task_mat, srcs,
                                        valid, n, r, q, rows, placements);
@@ -429,7 +446,8 @@ int launch(const float* est, float* reserved, float* requested, int* n_tasks,
 extern "C" int flex_score_admit_cluster() { return kCluster; }
 extern "C" int flex_score_admit_max_r() { return kMaxR; }
 
-// Admits q tasks on `stream`: the plan (rows per CTA, src_count on chip or
+// Admits q tasks in each of `runs` runs on `stream` (run b's tables,
+// queue and placements at b times their size), a cluster a run: the plan (rows per CTA, src_count on chip or
 // not, shared memory per CTA) is the launcher's (`admit_plan` in
 // flex_score.py), checked here against the layout above.  Updates
 // reserved, requested, n_tasks and src_count in place and writes
@@ -442,8 +460,8 @@ extern "C" int flex_score_admit(const float* est, float* reserved,
                                 const int* srcs, const unsigned char* valid,
                                 int n, int r, int q, int rows, int on_chip,
                                 int smem, int* placements,
-                                cudaStream_t stream) {
-  if (r < 1 || r > kMaxR || n < 1 || q < 1 || rows < 1 ||
+                                cudaStream_t stream, int runs) {
+  if (runs < 1 || r < 1 || r > kMaxR || n < 1 || q < 1 || rows < 1 ||
       static_cast<long long>(rows) * kCluster < n ||
       static_cast<long long>(rows - 1) * kCluster >= n ||
       smem < smem_bytes(rows, r, on_chip != 0))
@@ -452,16 +470,18 @@ extern "C" int flex_score_admit(const float* est, float* reserved,
     return r == 2 ? launch<2, kOnChipThreads, true>(
                         est, reserved, requested, n_tasks, src_count,
                         task_mat, srcs, valid, n, r, q, rows, smem,
-                        placements, stream)
+                        placements, stream, runs)
                   : launch<0, kOnChipThreads, true>(
                         est, reserved, requested, n_tasks, src_count,
                         task_mat, srcs, valid, n, r, q, rows, smem,
-                        placements, stream);
+                        placements, stream, runs);
   }
   return r == 2 ? launch<2, kGlobalThreads, false>(
                       est, reserved, requested, n_tasks, src_count, task_mat,
-                      srcs, valid, n, r, q, rows, smem, placements, stream)
+                      srcs, valid, n, r, q, rows, smem, placements, stream,
+                      runs)
                 : launch<0, kGlobalThreads, false>(
                       est, reserved, requested, n_tasks, src_count, task_mat,
-                      srcs, valid, n, r, q, rows, smem, placements, stream);
+                      srcs, valid, n, r, q, rows, smem, placements, stream,
+                      runs);
 }

@@ -65,6 +65,11 @@
 // kMaxK = 32 slots; a larger k runs further passes, each taking the best
 // pairs strictly after the last one the previous pass wrote.
 //
+// With a run axis (B independent runs, each with its own node table) the
+// runs' queues are one flattened queue of B Q tasks, rows of task_mat and
+// src_frac as one run's are; task q scores against run q / Q's table.
+// The grid, the split and the merge are those of one queue of B Q tasks.
+//
 // When the node range is split, each unit writes its partial (the argmax
 // pair, or the pass's k-list) to scratch the launcher allocates, and a
 // second small kernel merges a task's partials under the same total
@@ -263,17 +268,19 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                            const float* __restrict__ reserved,
                            const float* __restrict__ src_frac,
                            const float* __restrict__ task_mat, int n, int r,
-                           int q_count, int chunk, int splits,
+                           int q_count, int q_run, int chunk, int splits,
                            float* __restrict__ dst_score,
                            int* __restrict__ dst_idx) {
   const int unit = blockIdx.x * kWarps + threadIdx.x / 32;
   if (unit >= q_count * splits) return;
   const int q = unit / splits;
   const int n0 = (unit % splits) * chunk;
+  const size_t table = static_cast<size_t>(q / q_run) * n * r;  // q's run
   const TaskRow<R> t(task_mat, q, r);
   float best_s = kNegInf;
   int best_i = INT_MAX;
-  sweep<R>(est, reserved, src_frac, t, q, n, r, n0, min(n, n0 + chunk),
+  sweep<R>(est + table, reserved + table, src_frac, t, q, n, r, n0,
+           min(n, n0 + chunk),
            [&](const float (&s)[4], int node0) {
 #pragma unroll
              for (int e = 0; e < 4; ++e) {
@@ -484,8 +491,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                            const float* __restrict__ reserved,
                            const float* __restrict__ src_frac,
                            const float* __restrict__ task_mat, int n, int r,
-                           int q_count, int chunk, int splits, int k,
-                           int col0, int kpass, int kp,
+                           int q_count, int q_run, int chunk, int splits,
+                           int k, int col0, int kpass, int kp,
                            float* __restrict__ part_score,
                            int* __restrict__ part_idx,
                            float* __restrict__ out_score,
@@ -509,8 +516,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
   WarpTopK top(kpass, buf_s[warp], buf_i[warp]);
   if (!kAfter || after_s > kNegInf / 2) {
+    const size_t table = static_cast<size_t>(q / q_run) * n * r;  // q's run
     const TaskRow<R> t(task_mat, q, r);
-    sweep<R>(est, reserved, src_frac, t, q, n, r, n0, min(n, n0 + chunk),
+    sweep<R>(est + table, reserved + table, src_frac, t, q, n, r, n0,
+             min(n, n0 + chunk),
              [&](const float (&s)[4], int node0) {
                // Every node merged so far comes before node0, so a node
                // beats the threshold only by its score.
@@ -586,10 +595,12 @@ bool shape_ok(int n, int r, int q, int chunk, const void* part_score,
   return chunk >= n || (part_score != nullptr && part_idx != nullptr);
 }
 
-// Whether the R = 2 instance may run: it reads the table 16 bytes at a
-// time.
-bool table_vectors(int r, const float* est, const float* reserved) {
-  return r == 2 && (reinterpret_cast<uintptr_t>(est) & 15) == 0 &&
+// Whether the R = 2 instance may run: it reads every run's table 16 bytes
+// at a time.
+bool table_vectors(int r, int n, int runs, const float* est,
+                   const float* reserved) {
+  return r == 2 && (runs == 1 || n % 2 == 0) &&
+         (reinterpret_cast<uintptr_t>(est) & 15) == 0 &&
          (reinterpret_cast<uintptr_t>(reserved) & 15) == 0;
 }
 
@@ -603,8 +614,10 @@ int blocks_for(long long units) {
 extern "C" int flex_score_batch_max_r() { return kMaxR; }
 extern "C" int flex_score_batch_pass_slots() { return kMaxK; }
 
-// The argmax of every task, on `stream`, over chunks of `chunk` nodes (a
-// multiple of 4; chunk >= n sweeps each task's row whole).  With more than
+// The argmax of every task of `runs` runs (q each, run b's table at b
+// times its size, its tasks after run b - 1's), on `stream`, over chunks
+// of `chunk` nodes (a multiple of 4; chunk >= n sweeps each task's row
+// whole).  With more than
 // one chunk, part_score/part_idx hold q * ceil(n / chunk) partials and a
 // merge kernel follows.  Returns cudaGetLastError() as an int
 // (cudaErrorInvalidValue for a shape the kernels do not take).
@@ -613,22 +626,25 @@ extern "C" int flex_score_batch_pick(const float* est, const float* reserved,
                                      const float* task_mat, int n, int r,
                                      int q, int chunk, float* part_score,
                                      int* part_idx, float* out_score,
-                                     int* out_idx, cudaStream_t stream) {
-  if (!shape_ok(n, r, q, chunk, part_score, part_idx)) {
+                                     int* out_idx, cudaStream_t stream,
+                                     int runs) {
+  if (runs < 1 || !shape_ok(n, r, q, chunk, part_score, part_idx)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int q_run = q;
+  q *= runs;
   const int splits = (n + chunk - 1) / chunk;
   float* dst_s = splits == 1 ? out_score : part_score;
   int* dst_i = splits == 1 ? out_idx : part_idx;
   const int blocks = blocks_for(static_cast<long long>(q) * splits);
-  if (table_vectors(r, est, reserved)) {
+  if (table_vectors(r, n, runs, est, reserved)) {
     flex_batch_pick_kernel<2><<<blocks, kThreads, 0, stream>>>(
-        est, reserved, src_frac, task_mat, n, r, q, chunk, splits, dst_s,
-        dst_i);
+        est, reserved, src_frac, task_mat, n, r, q, q_run, chunk, splits,
+        dst_s, dst_i);
   } else {
     flex_batch_pick_kernel<0><<<blocks, kThreads, 0, stream>>>(
-        est, reserved, src_frac, task_mat, n, r, q, chunk, splits, dst_s,
-        dst_i);
+        est, reserved, src_frac, task_mat, n, r, q, q_run, chunk, splits,
+        dst_s, dst_i);
   }
   if (splits > 1) {
     flex_batch_pick_merge<<<(q + kThreads - 1) / kThreads, kThreads, 0,
@@ -638,7 +654,8 @@ extern "C" int flex_score_batch_pick(const float* est, const float* reserved,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The k best of every task, into (q, k) row-major outputs, on `stream`:
+// The k best of every task of `runs` runs (laid out as for
+// flex_score_batch_pick), into (runs q, k) row-major outputs, on `stream`:
 // ceil(k / 32) passes, each one sweep (and, with more than one chunk, a
 // merge over part_score/part_idx, which hold q * ceil(n / chunk) *
 // min(k, 32) pairs).  Returns as flex_score_batch_pick.
@@ -648,14 +665,17 @@ extern "C" int flex_score_batch_topk(const float* est, const float* reserved,
                                      int q, int k, int chunk,
                                      float* part_score, int* part_idx,
                                      float* out_score, int* out_idx,
-                                     cudaStream_t stream) {
-  if (!shape_ok(n, r, q, chunk, part_score, part_idx) || k <= 0) {
+                                     cudaStream_t stream, int runs) {
+  if (runs < 1 || !shape_ok(n, r, q, chunk, part_score, part_idx) ||
+      k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int q_run = q;
+  q *= runs;
   const int splits = (n + chunk - 1) / chunk;
   const int kp = k < kMaxK ? k : kMaxK;
   const int blocks = blocks_for(static_cast<long long>(q) * splits);
-  const bool vec = table_vectors(r, est, reserved);
+  const bool vec = table_vectors(r, n, runs, est, reserved);
   for (int col0 = 0; col0 < k; col0 += kMaxK) {
     const int kpass = k - col0 < kMaxK ? k - col0 : kMaxK;
     auto kernel = vec ? (col0 > 0 ? flex_batch_topk_kernel<2, true>
@@ -663,8 +683,8 @@ extern "C" int flex_score_batch_topk(const float* est, const float* reserved,
                       : (col0 > 0 ? flex_batch_topk_kernel<0, true>
                                   : flex_batch_topk_kernel<0, false>);
     kernel<<<blocks, kThreads, 0, stream>>>(
-        est, reserved, src_frac, task_mat, n, r, q, chunk, splits, k, col0,
-        kpass, kp, part_score, part_idx, out_score, out_idx);
+        est, reserved, src_frac, task_mat, n, r, q, q_run, chunk, splits, k,
+        col0, kpass, kp, part_score, part_idx, out_score, out_idx);
     if (splits > 1) {
       flex_batch_topk_merge<<<blocks_for(q), kThreads, 0, stream>>>(
           part_score, part_idx, q, splits, k, col0, kpass, kp, out_score,

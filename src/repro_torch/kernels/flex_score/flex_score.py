@@ -12,6 +12,12 @@ fails.  None waits for the device.  ``LAUNCHES``, ``QUEUE_LAUNCHES``,
 each, so a run can show that its decisions went through the kernels: one
 per call of the pick, of the queue kernel and of the argmax, and one per
 top-K pass, the merge kernel of a split sweep included.
+
+Each launcher takes a leading run axis: B independent runs, each with its
+own node table, decided in the same launch (the pick: one block a run;
+the queue kernel: one cluster a run; the sweeps: the runs' tasks in one
+grid, each scored against its own run's table).  A call without one is
+the B = 1 launch.
 """
 from __future__ import annotations
 
@@ -65,9 +71,9 @@ def _batch_lib() -> _BatchLib:
     if found is None:
         found = _BATCH[lib] = _BatchLib(
             _declare(lib.flex_score_batch_pick,
-                     [_PTR] * 4 + [_INT] * 4 + [_PTR] * 5),
+                     [_PTR] * 4 + [_INT] * 4 + [_PTR] * 5 + [_INT]),
             _declare(lib.flex_score_batch_topk,
-                     [_PTR] * 4 + [_INT] * 5 + [_PTR] * 5),
+                     [_PTR] * 4 + [_INT] * 5 + [_PTR] * 5 + [_INT]),
             lib.flex_score_batch_max_r(), lib.flex_score_batch_pass_slots())
     return found
 
@@ -83,11 +89,13 @@ MIN_CHUNK = 256
 MAX_SPLITS = 32
 
 
-def batch_plan(n: int, q: int):
+def batch_plan(n: int, q: int, runs: int = 1):
     """(chunk, splits, blocks) of a batched sweep over ``n`` nodes for
-    ``q`` tasks: nodes per chunk (a multiple of 4), chunks per task, and
-    the sweep kernel's blocks.  With ``splits > 1`` the launcher allocates
-    ``q * splits`` partials and the kernel merges them in a second pass."""
+    ``q`` tasks in each of ``runs`` runs: nodes per chunk (a multiple of
+    4), chunks per task, and the sweep kernel's blocks.  With ``splits >
+    1`` the launcher allocates ``runs * q * splits`` partials and the
+    kernel merges them in a second pass."""
+    q = q * runs
     splits = max(1, min(-(-FILL_WARPS // q), -(-n // MIN_CHUNK), MAX_SPLITS))
     chunk = -(-n // splits)
     chunk += -chunk % 4
@@ -113,6 +121,12 @@ def _raise_on(caller, err):
         raise RuntimeError(f"{caller}: launch failed with CUDA error {err}")
 
 
+def _runs_view(t: torch.Tensor, dims: int) -> torch.Tensor:
+    """``t`` with a leading run axis: as it is when it has one (``dims + 1``
+    dimensions), else a (1, ...) view."""
+    return t if t.dim() == dims + 1 else t.unsqueeze(0)
+
+
 def flex_score_pick(est: torch.Tensor, reserved: torch.Tensor,
                     src_frac: torch.Tensor, task_vec: torch.Tensor):
     """One decision on the card.
@@ -120,32 +134,38 @@ def flex_score_pick(est: torch.Tensor, reserved: torch.Tensor,
     est/reserved (N, R) f32; src_frac (N,) f32; task_vec (R + 4,) f32
     packed ``[r..., penalty, cap, w_load, w_src]``; all contiguous on one
     CUDA device.  Returns (idx (1,) i32 or -1, best score (1,) f32).
+    With a run axis (est (B, N, R), src_frac (B, N), task_vec (B, R + 4))
+    one launch of B blocks decides for every run: (B,) outputs.
     """
     caller = "flex_score_pick"
-    if est.dim() != 2:
-        raise ValueError(f"{caller}: est must be (N, R), got "
+    if est.dim() not in (2, 3):
+        raise ValueError(f"{caller}: est must be (N, R) or (B, N, R), got "
                          f"{tuple(est.shape)}")
-    n, r = est.shape
+    est = _runs_view(est, 2)
+    b, n, r = est.shape
     device = est.device
-    _check(caller, "est", est, (n, r), torch.float32, device)
-    _check(caller, "reserved", reserved, (n, r), torch.float32, device)
-    _check(caller, "src_frac", src_frac, (n,), torch.float32, device)
-    _check(caller, "task_vec", task_vec, (r + 4,), torch.float32, device)
+    reserved, src_frac, task_vec = (_runs_view(reserved, 2),
+                                    _runs_view(src_frac, 1),
+                                    _runs_view(task_vec, 1))
+    _check(caller, "est", est, (b, n, r), torch.float32, device)
+    _check(caller, "reserved", reserved, (b, n, r), torch.float32, device)
+    _check(caller, "src_frac", src_frac, (b, n), torch.float32, device)
+    _check(caller, "task_vec", task_vec, (b, r + 4), torch.float32, device)
     fn = _fn("flex_score", "flex_score_pick",
-             [_PTR] * 4 + [_INT] * 2 + [_PTR] * 3)
-    score = torch.empty(1, dtype=torch.float32, device=device)
-    idx = torch.empty(1, dtype=torch.int32, device=device)
+             [_PTR] * 4 + [_INT] * 2 + [_PTR] * 3 + [_INT])
+    score = torch.empty(b, dtype=torch.float32, device=device)
+    idx = torch.empty(b, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     _raise_on(caller, fn(est.data_ptr(), reserved.data_ptr(),
                          src_frac.data_ptr(), task_vec.data_ptr(), n, r,
-                         score.data_ptr(), idx.data_ptr(), stream))
+                         score.data_ptr(), idx.data_ptr(), stream, b))
     global LAUNCHES
     LAUNCHES += 1
     return idx, score
 
 
 # The queue kernel's plan (csrc/flex_score_admit.cu): one cluster of
-# ADMIT_CLUSTER CTAs, each holding ceil(N / ADMIT_CLUSTER) node rows in its
+# ADMIT_CLUSTER CTAs a run, each holding ceil(N / ADMIT_CLUSTER) node rows in its
 # shared memory for the whole queue: est and reserved (8 R bytes a node)
 # and n_tasks (4), plus the node's SRC_BUCKETS src_count entries (256) where
 # they fit in ADMIT_SMEM beside ADMIT_FIXED_SMEM bytes of the kernel's own.
@@ -172,9 +192,9 @@ def admit_plan(n: int, r: int):
     if smem > ADMIT_SMEM:
         limit = (ADMIT_SMEM - ADMIT_FIXED_SMEM) // table * ADMIT_CLUSTER
         raise ValueError(
-            f"flex_score_admit: at most {limit} nodes at R = {r} (the node "
-            f"table lives in the shared memory of {ADMIT_CLUSTER} CTAs), "
-            f"got {n}")
+            f"flex_score_admit: at most {limit} nodes at R = {r} (a run's "
+            f"node table lives in the shared memory of {ADMIT_CLUSTER} "
+            f"CTAs), got {n}")
     return rows, on_chip, smem
 
 
@@ -195,7 +215,8 @@ def _admit_fn():
                                f"max R) {built} differ from the launcher's "
                                f"{want}")
         fn = _ADMIT[lib] = _declare(lib.flex_score_admit,
-                                    [_PTR] * 8 + [_INT] * 6 + [_PTR] * 2)
+                                    [_PTR] * 8 + [_INT] * 6 + [_PTR] * 2
+                                    + [_INT])
     return fn
 
 
@@ -213,24 +234,37 @@ def flex_score_admit(est: torch.Tensor, reserved: torch.Tensor,
     same-source share ``src_count[:, src] / max(n_tasks, 1)`` of the state
     the earlier decisions left.  Returns placements (Q,) i32, a node or
     -1.  A call with Q > 0 counts one launch in ``QUEUE_LAUNCHES``.
+
+    With a run axis (est (B, N, R), ..., task_mat (B, Q, R + 4), srcs and
+    valid (B, Q)) one launch admits every run's queue into its own
+    tables, a cluster a run: placements (B, Q).  A run's padding entries
+    are invalid.  About 8 clusters of the largest plan are resident on an
+    H100 at once; more runs go in waves.
     """
     caller = "flex_score_admit"
-    if est.dim() != 2 or task_mat.dim() != 2:
+    if est.dim() not in (2, 3) or task_mat.dim() != est.dim():
         raise ValueError(f"{caller}: est must be (N, R) and task_mat "
-                         f"(Q, R + 4), got {tuple(est.shape)} and "
+                         f"(Q, R + 4), each with or without a leading run "
+                         f"axis, got {tuple(est.shape)} and "
                          f"{tuple(task_mat.shape)}")
-    n, r = est.shape
-    q = task_mat.shape[0]
+    unbatched = est.dim() == 2
+    est, reserved, requested, task_mat = (_runs_view(x, 2) for x in (
+        est, reserved, requested, task_mat))
+    n_tasks, srcs, valid = (_runs_view(x, 1) for x in (n_tasks, srcs,
+                                                        valid))
+    src_count = _runs_view(src_count, 2)
+    b, n, r = est.shape
+    q = task_mat.shape[1]
     device = est.device
     for name, t, shape, dtype in (
-            ("est", est, (n, r), torch.float32),
-            ("reserved", reserved, (n, r), torch.float32),
-            ("requested", requested, (n, r), torch.float32),
-            ("n_tasks", n_tasks, (n,), torch.int32),
-            ("src_count", src_count, (n, SRC_BUCKETS), torch.int32),
-            ("task_mat", task_mat, (q, r + 4), torch.float32),
-            ("srcs", srcs, (q,), torch.int32),
-            ("valid", valid, (q,), torch.bool)):
+            ("est", est, (b, n, r), torch.float32),
+            ("reserved", reserved, (b, n, r), torch.float32),
+            ("requested", requested, (b, n, r), torch.float32),
+            ("n_tasks", n_tasks, (b, n), torch.int32),
+            ("src_count", src_count, (b, n, SRC_BUCKETS), torch.int32),
+            ("task_mat", task_mat, (b, q, r + 4), torch.float32),
+            ("srcs", srcs, (b, q), torch.int32),
+            ("valid", valid, (b, q), torch.bool)):
         _check(caller, name, t, shape, dtype, device)
     if r > ADMIT_MAX_R:
         raise ValueError(f"{caller}: at most {ADMIT_MAX_R} resources, "
@@ -238,15 +272,15 @@ def flex_score_admit(est: torch.Tensor, reserved: torch.Tensor,
     if n == 0:
         raise ValueError(f"{caller}: the node table is empty")
     rows, on_chip, smem = admit_plan(n, r)
-    placements = torch.empty(q, dtype=torch.int32, device=device)
-    if q == 0:
-        return placements
+    placements = torch.empty((b, q), dtype=torch.int32, device=device)
+    if q == 0 or b == 0:
+        return placements[0] if unbatched else placements
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _admit_fn()(
         est.data_ptr(), reserved.data_ptr(), requested.data_ptr(),
         n_tasks.data_ptr(), src_count.data_ptr(), task_mat.data_ptr(),
-        srcs.data_ptr(), valid.data_ptr(), n, r, q, rows, int(on_chip), smem,
-        placements.data_ptr(), stream)
+        srcs.data_ptr(), valid.data_ptr(), n, r, q, rows, int(on_chip),
+        smem, placements.data_ptr(), stream, b)
     if err == _ERR_CLUSTER:
         raise RuntimeError(f"{caller}: a cluster of {ADMIT_CLUSTER} CTAs "
                            f"with {smem} bytes of shared memory each cannot "
@@ -257,7 +291,7 @@ def flex_score_admit(est: torch.Tensor, reserved: torch.Tensor,
     _raise_on(caller, err)
     global QUEUE_LAUNCHES
     QUEUE_LAUNCHES += 1
-    return placements
+    return placements[0] if unbatched else placements
 
 
 def _scratch(q, splits, slots, device):
@@ -274,22 +308,28 @@ def _ptr(t):
 
 
 def _check_batch(caller, est, reserved, src_frac, task_mat):
-    """Shapes (N, R, Q) of a batched call, after checking every tensor."""
-    if est.dim() != 2 or task_mat.dim() != 2:
+    """(est, reserved, src_frac, task_mat) with a leading run axis, and
+    the shapes (B, N, R, Q) of a batched call, after checking every
+    tensor."""
+    if est.dim() not in (2, 3) or task_mat.dim() != est.dim():
         raise ValueError(f"{caller}: est must be (N, R) and task_mat "
-                         f"(Q, R + 4), got {tuple(est.shape)} and "
+                         f"(Q, R + 4), each with or without a leading run "
+                         f"axis, got {tuple(est.shape)} and "
                          f"{tuple(task_mat.shape)}")
-    n, r = est.shape
-    q = task_mat.shape[0]
+    est, reserved, src_frac, task_mat = (_runs_view(x, 2) for x in (
+        est, reserved, src_frac, task_mat))
+    b, n, r = est.shape
+    q = task_mat.shape[1]
     device = est.device
-    _check(caller, "est", est, (n, r), torch.float32, device)
-    _check(caller, "reserved", reserved, (n, r), torch.float32, device)
-    _check(caller, "src_frac", src_frac, (q, n), torch.float32, device)
-    _check(caller, "task_mat", task_mat, (q, r + 4), torch.float32, device)
+    _check(caller, "est", est, (b, n, r), torch.float32, device)
+    _check(caller, "reserved", reserved, (b, n, r), torch.float32, device)
+    _check(caller, "src_frac", src_frac, (b, q, n), torch.float32, device)
+    _check(caller, "task_mat", task_mat, (b, q, r + 4), torch.float32,
+           device)
     max_r = _batch_lib().max_r
     if r > max_r:
         raise ValueError(f"{caller}: at most {max_r} resources, got {r}")
-    return n, r, q
+    return (est, reserved, src_frac, task_mat), (b, n, r, q)
 
 
 def flex_score_batch_pick(est: torch.Tensor, reserved: torch.Tensor,
@@ -299,27 +339,30 @@ def flex_score_batch_pick(est: torch.Tensor, reserved: torch.Tensor,
     est/reserved (N, R) f32; src_frac (Q, N) f32; task_mat (Q, R + 4) f32,
     row q packed ``[r..., penalty, cap, w_load, w_src]``; all contiguous on
     one CUDA device.  Returns (idx (Q,) i32 or -1, best score (Q,) f32).
-    A sweep whose node range :func:`batch_plan` splits runs a second,
-    merging kernel; either way a call counts one launch in
+    With a run axis (est (B, N, R), src_frac (B, Q, N), task_mat (B, Q,
+    R + 4)) one sweep scores every run's queue against its own table:
+    (B, Q) outputs.  A sweep whose node range :func:`batch_plan` splits
+    runs a second, merging kernel; either way a call counts one launch in
     ``BATCH_LAUNCHES``.
     """
     caller = "flex_score_batch_pick"
-    n, r, q = _check_batch(caller, est, reserved, src_frac, task_mat)
+    unbatched = est.dim() == 2
+    (est, reserved, src_frac, task_mat), (b, n, r, q) = _check_batch(
+        caller, est, reserved, src_frac, task_mat)
     device = est.device
-    score = torch.empty(q, dtype=torch.float32, device=device)
-    idx = torch.empty(q, dtype=torch.int32, device=device)
-    if q == 0:
-        return idx, score
-    chunk, splits, _ = batch_plan(n, q)
-    part_s, part_i = _scratch(q, splits, 1, device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _raise_on(caller, _batch_lib().pick(
-        est.data_ptr(), reserved.data_ptr(), src_frac.data_ptr(),
-        task_mat.data_ptr(), n, r, q, chunk, _ptr(part_s), _ptr(part_i),
-        score.data_ptr(), idx.data_ptr(), stream))
-    global BATCH_LAUNCHES
-    BATCH_LAUNCHES += 1
-    return idx, score
+    score = torch.empty((b, q), dtype=torch.float32, device=device)
+    idx = torch.empty((b, q), dtype=torch.int32, device=device)
+    if q * b:
+        chunk, splits, _ = batch_plan(n, q, b)
+        part_s, part_i = _scratch(b * q, splits, 1, device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(caller, _batch_lib().pick(
+            est.data_ptr(), reserved.data_ptr(), src_frac.data_ptr(),
+            task_mat.data_ptr(), n, r, q, chunk, _ptr(part_s),
+            _ptr(part_i), score.data_ptr(), idx.data_ptr(), stream, b))
+        global BATCH_LAUNCHES
+        BATCH_LAUNCHES += 1
+    return (idx[0], score[0]) if unbatched else (idx, score)
 
 
 def flex_score_batch_topk(est: torch.Tensor, reserved: torch.Tensor,
@@ -327,32 +370,34 @@ def flex_score_batch_topk(est: torch.Tensor, reserved: torch.Tensor,
                           k: int):
     """Each queued task's ``k`` best nodes on the card.
 
-    Inputs as in :func:`flex_score_batch_pick`.  Returns (idx (Q, k) i32,
-    score (Q, k) f32), each row ordered by (score desc, node asc), with
-    (-1, NEG_INF) past the task's feasible nodes.  One pass fills 32
-    slots; a larger ``k`` takes ``ceil(k / 32)`` passes, each counted as
-    one launch in ``TOPK_LAUNCHES`` (with the merging kernel of a split
-    sweep, see :func:`flex_score_batch_pick`).
+    Inputs as in :func:`flex_score_batch_pick`, with or without a run
+    axis.  Returns (idx (Q, k) i32, score (Q, k) f32), each row ordered by
+    (score desc, node asc), with (-1, NEG_INF) past the task's feasible
+    nodes; (B, Q, k) with a run axis.  One pass fills 32 slots; a larger
+    ``k`` takes ``ceil(k / 32)`` passes, each counted as one launch in
+    ``TOPK_LAUNCHES`` (with the merging kernel of a split sweep, see
+    :func:`flex_score_batch_pick`).
     """
     caller = "flex_score_batch_topk"
     k = int(k)
     if k < 1:
         raise ValueError(f"{caller}: k must be at least 1, got {k}")
-    n, r, q = _check_batch(caller, est, reserved, src_frac, task_mat)
+    unbatched = est.dim() == 2
+    (est, reserved, src_frac, task_mat), (b, n, r, q) = _check_batch(
+        caller, est, reserved, src_frac, task_mat)
     device = est.device
-    score = torch.empty((q, k), dtype=torch.float32, device=device)
-    idx = torch.empty((q, k), dtype=torch.int32, device=device)
-    if q == 0:
-        return idx, score
-    lib = _batch_lib()
-    slots = lib.pass_slots
-    chunk, splits, _ = batch_plan(n, q)
-    part_s, part_i = _scratch(q, splits, min(k, slots), device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _raise_on(caller, lib.topk(
-        est.data_ptr(), reserved.data_ptr(), src_frac.data_ptr(),
-        task_mat.data_ptr(), n, r, q, k, chunk, _ptr(part_s),
-        _ptr(part_i), score.data_ptr(), idx.data_ptr(), stream))
-    global TOPK_LAUNCHES
-    TOPK_LAUNCHES += -(-k // slots)
-    return idx, score
+    score = torch.empty((b, q, k), dtype=torch.float32, device=device)
+    idx = torch.empty((b, q, k), dtype=torch.int32, device=device)
+    if q * b:
+        lib = _batch_lib()
+        slots = lib.pass_slots
+        chunk, splits, _ = batch_plan(n, q, b)
+        part_s, part_i = _scratch(b * q, splits, min(k, slots), device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(caller, lib.topk(
+            est.data_ptr(), reserved.data_ptr(), src_frac.data_ptr(),
+            task_mat.data_ptr(), n, r, q, k, chunk, _ptr(part_s),
+            _ptr(part_i), score.data_ptr(), idx.data_ptr(), stream, b))
+        global TOPK_LAUNCHES
+        TOPK_LAUNCHES += -(-k // slots)
+    return (idx[0], score[0]) if unbatched else (idx, score)

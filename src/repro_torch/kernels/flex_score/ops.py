@@ -9,6 +9,13 @@ best nodes) score a whole queue in one sweep (wavefront admission,
 ``repro_torch.api.admission.admit_queue_wavefront``).  Dispatch follows
 the tensors' device: CPU tensors take the plain versions (``ref.py``),
 CUDA tensors launch the hand-written kernels or raise.
+
+Every wrapper also takes a leading run axis: B independent runs, each
+with its own node table (est (B, N, R)) and its own tasks, decided in
+one kernel launch (``core.simulator.simulate_runs``).  Then every
+per-run argument leads with B, a Python number is shared by the runs,
+and every output leads with B.  A call without a run axis is the B = 1
+launch.
 """
 from __future__ import annotations
 
@@ -26,15 +33,17 @@ from repro_torch.kernels.flex_score.ref import (NEG_INF, admit_queue_ref,
 
 def pack_task(r_task, penalty, cap, w_load, w_src, device) -> torch.Tensor:
     """The kernel's (R + 4,) f32 task vector ``[r..., penalty, cap, w_load,
-    w_src]``, built on ``device`` from tensors or Python floats."""
-    parts = []
-    for x in (r_task, penalty, cap, w_load, w_src):
-        if isinstance(x, torch.Tensor):
-            parts.append(x.to(device=device, dtype=torch.float32).reshape(-1))
-        else:
-            parts.append(torch.full((1,), float(x), dtype=torch.float32,
-                                    device=device))
-    return torch.cat(parts)
+    w_src]``, built on ``device`` from tensors or Python floats; with
+    r_task (B, R) the (B, R + 4) vectors of B runs, each scalar (B,) or
+    shared."""
+    r_task = torch.as_tensor(r_task, dtype=torch.float32, device=device)
+    lead = tuple(r_task.shape[:-1])
+    parts = [r_task.reshape(lead + (-1,))]
+    for x in (penalty, cap, w_load, w_src):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        parts.append(x.reshape(-1) if not lead
+                     else x.reshape(x.shape + (1,)).expand(lead + (1,)))
+    return torch.cat(parts, dim=-1)
 
 
 def _device_kind(caller, est) -> str:
@@ -54,16 +63,19 @@ def flex_pick_node(est, reserved, src_frac, r_task, penalty, *, w_load=1.0,
     ``NEG_INF``.
 
     Returns (idx () i32 or -1, best_score () f32, any_feasible () bool),
-    without waiting for the device.
+    without waiting for the device.  With a run axis (est (B, N, R),
+    src_frac (B, N), r_task (B, R), the scalars (B,) or shared) one launch
+    decides for every run; the outputs are (B,).
     """
     if _device_kind("flex_pick_node", est) == "cpu":
         return pick_node_ref(est, reserved, src_frac, r_task, penalty,
                              w_load, w_src, cap=cap)
     task_vec = pack_task(r_task, penalty, cap, w_load, w_src, est.device)
     idx, best = flex_score_pick(est.contiguous(), reserved.contiguous(),
-                                src_frac.contiguous(), task_vec)
-    best = best[0]
-    return idx[0], best, best > NEG_INF / 2
+                                src_frac.contiguous(), task_vec.contiguous())
+    if est.dim() == 2:
+        idx, best = idx[0], best[0]
+    return idx, best, best > NEG_INF / 2
 
 
 def flex_admit_queue(est, reserved, requested, n_tasks, src_count, task_mat,
@@ -76,7 +88,9 @@ def flex_admit_queue(est, reserved, requested, n_tasks, src_count, task_mat,
     src_count (N, 64) i32, updated IN PLACE; task_mat (Q, R + 4) f32 rows
     ``[r..., penalty, cap, w_load, w_src]``; srcs (Q,) i32; valid (Q,)
     bool.  CPU tensors take :func:`admit_queue_ref`; CUDA tensors launch
-    the queue kernel once, or raise.
+    the queue kernel once, or raise.  With a run axis every argument leads
+    with B: run b admits its own queue into its own tables, all B in one
+    launch (placements (B, Q)); a run's padding entries are invalid.
 
     Returns placements (Q,) i32, a node or -1, without waiting for the
     device.
@@ -91,29 +105,33 @@ def flex_admit_queue(est, reserved, requested, n_tasks, src_count, task_mat,
 def _check_batch_args(caller, est, src_frac, r_task, penalty, cap, w_load,
                       w_src):
     """Shape check of the batched wrappers: r_task (Q, R) and src_frac
-    (Q, N).  Returns (r_task, penalty, cap, w_load, w_src) as f32 on est's
-    device, the four scalars broadcast to (Q,)."""
+    (Q, N), or with a run axis (B, Q, R) and (B, Q, N).  Returns (r_task,
+    penalty, cap, w_load, w_src) as f32 on est's device, the four scalars
+    (shared, (Q,) or (B, Q)) broadcast to (Q,) or (B, Q)."""
     dev = est.device
+    lead = tuple(est.shape[:-2])
     r_task = torch.as_tensor(r_task, dtype=torch.float32, device=dev)
-    q = r_task.shape[0] if r_task.dim() else 0
-    n, r = est.shape
-    if tuple(r_task.shape) != (q, r) or tuple(src_frac.shape) != (q, n):
+    q = r_task.shape[len(lead)] if r_task.dim() > len(lead) else 0
+    n, r = est.shape[-2:]
+    if (tuple(r_task.shape) != lead + (q, r)
+            or tuple(src_frac.shape) != lead + (q, n)):
         raise ValueError(
-            f"{caller}: expected r_task (Q, R)={(q, r)} and src_frac "
-            f"(Q, N)={(q, n)}, got {tuple(r_task.shape)} and "
+            f"{caller}: expected r_task {lead + (q, r)} and src_frac "
+            f"{lead + (q, n)}, got {tuple(r_task.shape)} and "
             f"{tuple(src_frac.shape)}")
 
     def bcast(x):
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        return x.reshape(-1).expand(q)
+        return x.expand(lead + (q,))
 
     return (r_task,) + tuple(map(bcast, (penalty, cap, w_load, w_src)))
 
 
 def _task_mat(r_task, penalty, cap, w_load, w_src) -> torch.Tensor:
-    """The (Q, R + 4) rows ``[r..., penalty, cap, w_load, w_src]``."""
-    return torch.cat([r_task, penalty[:, None], cap[:, None],
-                      w_load[:, None], w_src[:, None]], dim=1).contiguous()
+    """The (..., Q, R + 4) rows ``[r..., penalty, cap, w_load, w_src]``."""
+    return torch.cat([r_task, penalty[..., None], cap[..., None],
+                      w_load[..., None], w_src[..., None]],
+                     dim=-1).contiguous()
 
 
 def flex_pick_node_batch(est, reserved, src_frac, r_task, penalty, *,
@@ -122,7 +140,10 @@ def flex_pick_node_batch(est, reserved, src_frac, r_task, penalty, *,
 
     est/reserved (N, R) f32, shared by every task; src_frac (Q, N) f32;
     r_task (Q, R) f32; penalty, w_load, w_src and cap scalars or (Q,).
-    Row q equals :func:`flex_pick_node` of task q bit for bit.
+    Row q equals :func:`flex_pick_node` of task q bit for bit.  With a
+    run axis (est (B, N, R), src_frac (B, Q, N), r_task (B, Q, R), the
+    scalars (B, Q) or shared) one sweep scores every run's queue
+    against its own table; the outputs lead with B.
 
     Returns (idx (Q,) i32 or -1, best_score (Q,) f32, any_feasible (Q,)),
     without waiting for the device.
@@ -145,9 +166,9 @@ def flex_pick_node_batch_topk(est, reserved, src_frac, r_task, penalty, *,
                               w_load, w_src, cap, k=8):
     """Each task's ``k`` best candidates in one sweep over the node table.
 
-    Arguments as in :func:`flex_pick_node_batch`, plus ``k``.  Rows are
-    ordered by (score desc, node asc); column 0 is
-    :func:`flex_pick_node_batch`'s decision.
+    Arguments as in :func:`flex_pick_node_batch` (with or without a run
+    axis), plus ``k``.  Rows are ordered by (score desc, node asc); column
+    0 is :func:`flex_pick_node_batch`'s decision.
 
     Returns (idx (Q, k) i32, score (Q, k) f32, any_feasible (Q,)); slots
     past a task's feasible nodes are (-1, NEG_INF).
@@ -163,4 +184,4 @@ def flex_pick_node_batch_topk(est, reserved, src_frac, r_task, penalty, *,
     idx, best = flex_score_batch_topk(
         est.contiguous(), reserved.contiguous(), src_frac.contiguous(),
         _task_mat(r_task, penalty, cap, w_load, w_src), k)
-    return idx, best, best[:, 0] > NEG_INF / 2
+    return idx, best, best[..., 0] > NEG_INF / 2

@@ -10,6 +10,12 @@ src_frac`` into fused multiply-adds, so these versions round each once
 with ``__fmaf_rn``.  The CPU tests hold them bit-equal to the reference's
 interpret-mode Pallas kernels, and ``chip_smoke.py`` holds the CUDA
 kernels bit-equal to them on the card.
+
+Each also takes a leading run axis (B independent runs, each with its
+own node table and tasks, as ``core.simulator.simulate_runs`` holds
+them): est (B, N, R) instead of (N, R), and every other per-run argument
+with B in front.  The run-axis forms loop over the runs, each run exactly
+the unbatched version; nothing on the card's main path calls them.
 """
 from __future__ import annotations
 
@@ -23,6 +29,22 @@ from repro_torch.core.numerics import fma
 NEG_INF = -1e30
 
 
+def over_runs(fn, runs: int, *args):
+    """``fn`` on each run's slice of ``args``, its outputs stacked along a
+    new leading run axis.  A tensor argument of at least one dimension
+    leads with the run axis; Python numbers and 0-d tensors are shared by
+    every run."""
+    def part(x, b):
+        if isinstance(x, torch.Tensor) and x.dim() > 0:
+            return x[b]
+        return x
+
+    outs = [fn(*(part(x, b) for x in args)) for b in range(runs)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
 def pick_node_ref(est, reserved, src_frac, r_task, penalty, w_load, w_src,
                   cap=1.0):
     """est/reserved (N, R); src_frac (N,); r_task (R,) or scalar.
@@ -30,7 +52,12 @@ def pick_node_ref(est, reserved, src_frac, r_task, penalty, w_load, w_src,
     ``penalty``/``cap``/``w_load``/``w_src`` are Python floats or 0-d f32
     tensors.  Nothing here waits for the device.
     Returns (idx () i32 or -1, best_score () f32, any_feasible () bool).
+    With a run axis (est (B, N, R), src_frac (B, N), r_task (B, R), the
+    scalars (B,) or shared) each output leads with B.
     """
+    if est.dim() == 3:
+        return over_runs(pick_node_ref, est.shape[0], est, reserved,
+                         src_frac, r_task, penalty, w_load, w_src, cap)
     load = fma(penalty, est, reserved)
     feasible = (load + r_task <= cap).all(dim=-1)
     inner = fma(w_load, load.max(dim=-1).values, w_src * src_frac)
@@ -47,15 +74,26 @@ def commit_one(reserved, requested, n_tasks, src_count, idx, ok, request,
     ``c = max(idx, 0)`` adds ``ok * request`` to reserved and requested and
     ``ok`` to n_tasks and src_count[c, src], so a decision that places
     nothing adds zeros to node 0.  ``idx`` () i32, ``ok`` () bool,
-    ``request`` (R,), ``src`` () i32."""
-    i = torch.clamp(idx, min=0).reshape(1)
-    add_f = (ok.to(torch.float32) * request).reshape(1, -1)
-    add_i = ok.to(torch.int32).reshape(1)
+    ``request`` (R,), ``src`` () i32; or, one decision in each of B runs,
+    the tables (B, N, ...) (contiguous), idx/ok/src (B,) and request
+    (B, R): run b commits to row ``b * N + c`` of the flattened tables."""
+    if n_tasks.dim() == 2:
+        runs, n = n_tasks.shape
+        i = torch.clamp(idx, min=0) + n * torch.arange(
+            runs, dtype=idx.dtype, device=idx.device)
+        reserved, requested, n_tasks = (
+            x.view((runs * n,) + tuple(x.shape[2:]))
+            for x in (reserved, requested, n_tasks))
+        add_f = ok.to(torch.float32)[:, None] * request
+    else:
+        i = torch.clamp(idx, min=0).reshape(1)
+        add_f = (ok.to(torch.float32) * request).reshape(1, -1)
+    add_i = ok.to(torch.int32).reshape(i.shape)
     reserved.index_add_(0, i, add_f)
     requested.index_add_(0, i, add_f)
     n_tasks.index_add_(0, i, add_i)
     src_count.view(-1).index_add_(
-        0, i * src_count.shape[1] + src.reshape(1), add_i)
+        0, i * src_count.shape[-1] + src.reshape(i.shape), add_i)
 
 
 def src_share(n_tasks, src_count, src) -> torch.Tensor:
@@ -76,7 +114,13 @@ def admit_queue_ref(est, reserved, requested, n_tasks, src_count, task_mat,
     q's src_frac is the Flex same-source share ``src_count[:, src] /
     max(n_tasks, 1)`` of the state the tasks before it left.  Nothing here
     waits for the device.  Returns placements (Q,) i32, a node or -1.
+    With a run axis (every argument leading with B) each run admits its
+    own queue into its own tables; placements (B, Q).
     """
+    if est.dim() == 3:
+        return over_runs(admit_queue_ref, est.shape[0], est, reserved,
+                         requested, n_tasks, src_count, task_mat, srcs,
+                         valid)
     r = est.shape[1]
     out = []
     for k in range(task_mat.shape[0]):
@@ -113,10 +157,14 @@ def pick_node_batch_ref(est, reserved, src_frac, r_task, penalty, w_load,
 
     est/reserved (N, R); src_frac (Q, N); r_task (Q, R); penalty, w_load,
     w_src and cap (Q,) f32.  Row q equals :func:`pick_node_ref` of task q
-    bit for bit.
+    bit for bit.  With a run axis every argument leads with B and so does
+    every output.
 
     Returns (idx (Q,) i32 or -1, best_score (Q,) f32, any_feasible (Q,)).
     """
+    if est.dim() == 3:
+        return over_runs(pick_node_batch_ref, est.shape[0], est, reserved,
+                         src_frac, r_task, penalty, w_load, w_src, cap)
     score = _batch_scores(est, reserved, src_frac, r_task, penalty, w_load,
                           w_src, cap)
     best = score.max(dim=1).values
@@ -134,10 +182,15 @@ def pick_node_batch_topk_ref(est, reserved, src_frac, r_task, penalty,
     descending sort keeps equal scores in index order (``torch.topk``
     promises no order among ties).  Slots past a task's feasible nodes,
     and past N when k > N, are (-1, NEG_INF).  Column 0 is
-    :func:`pick_node_batch_ref`'s decision.
+    :func:`pick_node_batch_ref`'s decision.  With a run axis every
+    argument but ``k`` leads with B and so does every output.
 
     Returns (idx (Q, k) i32, score (Q, k) f32, any_feasible (Q,)).
     """
+    if est.dim() == 3:
+        return over_runs(
+            lambda *a: pick_node_batch_topk_ref(*a, k), est.shape[0], est,
+            reserved, src_frac, r_task, penalty, w_load, w_src, cap)
     score = _batch_scores(est, reserved, src_frac, r_task, penalty, w_load,
                           w_src, cap)
     q, n = score.shape

@@ -5,7 +5,7 @@ reference's keys and values and warns where the reference warns: when
 the per-node series were not recorded, and when the run was unguarded.
 Under a crash the ``requested`` series, and with it ``avg_request_cpu``
 and ``avg_request_mem``, is the port's repaired sum, not the reference's
-(``core.simulator._requested_total``).
+(the metrics of ``core.simulator.simulate_runs``).
 """
 from __future__ import annotations
 
